@@ -1,0 +1,70 @@
+"""Node-classification models assembled from the conv layers.
+
+Port of ``GCN`` and ``GAT`` of ``graphneuralnetwork_tpu/nn/models.py``,
+with the same layer names (``conv1``/``conv2``, ``attn1``/``attn_out``).
+Dropout is active in ``train()`` mode and draws from the ``generator``
+passed to ``forward``. ``dtype=torch.bfloat16`` runs the layers in mixed
+precision; the logits come back in float32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from ..core.graph import Graph
+from .conv import GATConv, GCNConv, dropout
+
+
+class GCN(nn.Module):
+    def __init__(self, in_features: int, hidden: int = 128,
+                 num_classes: int = 7, dropout: float = 0.5,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dropout = dropout
+        self.conv1 = GCNConv(in_features, hidden, dtype=dtype)
+        self.conv2 = GCNConv(hidden, num_classes, dtype=dtype)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        self.conv1.reset_parameters(generator)
+        self.conv2.reset_parameters(generator)
+
+    def forward(self, graph: Graph, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = F.relu(self.conv1(graph, x))
+        if self.training:
+            h = dropout(h, self.dropout, generator)
+        return self.conv2(graph, h).float()
+
+
+class GAT(nn.Module):
+    def __init__(self, in_features: int, hidden: int = 8,
+                 num_classes: int = 7, num_heads: int = 8,
+                 dropout: float = 0.6, negative_slope: float = 0.2,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dropout = dropout
+        self.attn1 = GATConv(in_features, hidden, num_heads=num_heads,
+                             concat_heads=True,
+                             negative_slope=negative_slope,
+                             attn_dropout=dropout, dtype=dtype)
+        self.attn_out = GATConv(hidden * num_heads, num_classes,
+                                num_heads=1, concat_heads=False,
+                                negative_slope=negative_slope,
+                                attn_dropout=dropout, dtype=dtype)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        self.attn1.reset_parameters(generator)
+        self.attn_out.reset_parameters(generator)
+
+    def forward(self, graph: Graph, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.training:
+            x = dropout(x, self.dropout, generator)
+        h = F.elu(self.attn1(graph, x, generator))
+        if self.training:
+            h = dropout(h, self.dropout, generator)
+        return self.attn_out(graph, h, generator).float()

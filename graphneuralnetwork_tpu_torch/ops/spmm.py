@@ -1,0 +1,66 @@
+"""SpMM and SDDMM on padded COO edge lists.
+
+``spmm(graph, x)`` computes ``out[r] = Σ_{(s,r) ∈ E} w_sr · x[s]``: a
+gather ``x[senders] * w`` feeding ``aggregate_edges`` (K1 on the card).
+Autograd composes the backward: d x is a scatter of ``g[receivers] * w``
+by sender, d w the per-edge dot ``g[recv] · x[send]``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.graph import Graph
+from .aggregate import aggregate_edges, aggregate_rows
+
+
+def spmm(graph: Graph, x: torch.Tensor) -> torch.Tensor:
+    """out[r] = Σ_e w_e · x[senders_e] for receivers_e == r; [N, F]."""
+    gathered = x[graph.senders] * graph.edge_weight[:, None].to(x.dtype)
+    return aggregate_edges(graph, gathered)
+
+
+def spmm_weighted(graph: Graph, edge_weight: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """SpMM with externally supplied (e.g. attention) edge weights.
+
+    ``edge_weight`` may be [E] or [E, H] (multi-head); with heads ``x`` is
+    [N, H, F] and the result [N, H, F], computed in ONE aggregation of
+    [E, H·F] values.
+    """
+    gathered = x[graph.senders]
+    if edge_weight.ndim == 1:
+        return aggregate_edges(
+            graph, gathered * edge_weight[:, None].to(gathered.dtype))
+    if gathered.ndim != 3:
+        raise ValueError("multi-head spmm expects x of shape [N, H, F]")
+    e, h, f = gathered.shape
+    vals = gathered * edge_weight[:, :, None].to(gathered.dtype)
+    out = aggregate_edges(graph, vals.reshape(e, h * f))
+    return out.reshape(graph.n_nodes, h, f)
+
+
+def spmm_coo(senders, receivers, weights, x, n_out: int) -> torch.Tensor:
+    """Raw-array SpMM over receiver-sorted edges (padding weight 0). Builds
+    the row offsets on the fly; prefer ``spmm(graph, x)`` in hot loops."""
+    counts = torch.bincount(receivers, minlength=n_out)
+    if counts.shape[0] != n_out:
+        raise ValueError(f"receiver ids exceed n_out={n_out}")
+    row_ptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).int()
+    if receivers.numel() > 1 and bool((receivers[1:] < receivers[:-1]).any()):
+        raise ValueError("spmm_coo needs receiver-sorted edges")
+    gathered = x[senders] * weights[:, None].to(x.dtype)
+    return aggregate_rows(gathered, receivers, row_ptr, n_out)
+
+
+def sddmm_dot(senders, receivers, a: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """e_k = a[senders_k] · b[receivers_k] — [E] (or [E, H] for [N, H, F])."""
+    return torch.sum(a[senders] * b[receivers], dim=-1)
+
+
+def sddmm_additive(senders, receivers, f_src: torch.Tensor,
+                   f_dst: torch.Tensor) -> torch.Tensor:
+    """e_k = f_src[senders_k] + f_dst[receivers_k] — GAT's additive edge
+    score; ``f_src``/``f_dst`` are [N] or [N, H]."""
+    return f_src[senders] + f_dst[receivers]
