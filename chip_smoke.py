@@ -86,6 +86,8 @@ def time_ms(fn, reps: int = 7, batch: int = 20) -> float:
 
 
 def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
+    """The least time for the work, in ms: the larger of the bytes over the
+    memory rate and the float32 operations over their peak rate."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -143,54 +145,64 @@ def _check(name, out, ref, tol_key, abs_sum=None):
 
 
 def _k1_case(values, recv, row_ptr, n, label):
+    """K1 on ``values`` against its plain version. Only the ``row_ptr[-1]``
+    spanned edges count (Cora's padding does not), so the plain version,
+    the library call and the bound all take those edges alone."""
     elt = values.element_size()
-    e, f = values.shape
+    f = values.shape[1]
+    e = int(row_ptr[-1])
+    vals, rec = values[:e], recv[:e]
     out = k1.segment_sum(values, recv, row_ptr, n)
-    ref = k1.segment_sum_plain(values, recv, n)
+    ref = k1.segment_sum_plain(vals, rec, n)
     torch.cuda.synchronize()
     dtype = str(values.dtype).replace("torch.", "")
-    abs_sum = k1.segment_sum_plain(values.float().abs(), recv, n)
+    abs_sum = k1.segment_sum_plain(vals.float().abs(), rec, n)
     err, rtol, atol = _check(f"K1 {label}", out, ref, dtype, abs_sum)
     lib_out = torch.zeros(n, f, dtype=values.dtype, device=DEVICE)
-    b_ms, b_by = bound(e * f * elt + (n + 1) * 4 + n * f * elt, e * f)
+    n_bytes = e * f * elt + (n + 1) * 4 + n * f * elt
+    b_ms, b_by = bound(n_bytes, e * f)
     return dict(
-        kernel="K1", shape=[e, f], dtype=dtype, n_out=n, graph=label,
-        max_abs_err=err, rtol=rtol, atol=atol,
+        kernel="K1", shape=list(values.shape), edges_read=e, dtype=dtype,
+        n_out=n, graph=label, max_abs_err=err, rtol=rtol, atol=atol,
         kernel_ms=time_ms(lambda: k1.segment_sum(values, recv, row_ptr, n)),
-        plain_ms=time_ms(lambda: k1.segment_sum_plain(values, recv, n)),
-        library_ms=time_ms(lambda: lib_out.index_add_(0, recv, values)),
-        library="index_add_", bound_ms=b_ms, bound_by=b_by,
-        bytes=e * f * elt + (n + 1) * 4 + n * f * elt)
+        plain_ms=time_ms(lambda: k1.segment_sum_plain(vals, rec, n)),
+        library_ms=time_ms(lambda: lib_out.index_add_(0, rec, vals)),
+        library="index_add_", bound_ms=b_ms, bound_by=b_by, bytes=n_bytes)
 
 
 def _k2_case(scores, recv, row_ptr, n, label):
-    e, h = scores.shape
+    """K2 against its plain version, over the spanned edges as in K1."""
+    h = scores.shape[1]
+    e = int(row_ptr[-1])
+    sc, rec = scores[:e], recv[:e]
     out = k2.segment_max(scores, recv, row_ptr, n)
-    ref = k2.segment_max_plain(scores, recv, n)
+    ref = k2.segment_max_plain(sc, rec, n)
     torch.cuda.synchronize()
     err, rtol, atol = _check(f"K2 {label}", out, ref, "max")
     lib_out = torch.full((n, h), k2.EMPTY, device=DEVICE)
-    idx = recv.long()[:, None].expand(-1, h)
-    b_ms, b_by = bound(e * h * 4 + (n + 1) * 4 + n * h * 4, e * h)
+    idx = rec.long()[:, None].expand(-1, h)
+    n_bytes = e * h * 4 + (n + 1) * 4 + n * h * 4
+    b_ms, b_by = bound(n_bytes, e * h)
     return dict(
-        kernel="K2", shape=[e, h], dtype="float32", n_out=n, graph=label,
-        max_abs_err=err, rtol=rtol, atol=atol,
+        kernel="K2", shape=list(scores.shape), edges_read=e,
+        dtype="float32", n_out=n, graph=label, max_abs_err=err, rtol=rtol,
+        atol=atol,
         kernel_ms=time_ms(lambda: k2.segment_max(scores, recv, row_ptr, n)),
-        plain_ms=time_ms(lambda: k2.segment_max_plain(scores, recv, n)),
+        plain_ms=time_ms(lambda: k2.segment_max_plain(sc, rec, n)),
         library_ms=time_ms(lambda: lib_out.scatter_reduce_(
-            0, idx, scores, "amax", include_self=True)),
+            0, idx, sc, "amax", include_self=True)),
         library="scatter_reduce_", bound_ms=b_ms, bound_by=b_by,
-        bytes=e * h * 4 + (n + 1) * 4 + n * h * 4)
+        bytes=n_bytes)
 
 
 def phase_kernels(cora) -> list[dict]:
+    """Cora's padding edges get random values too: the kernels must ignore
+    them, as the plain versions do."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     g = cora.graph
     graphs = {"cora": (g.receivers, g.row_ptr, g.n_nodes, g.n_edge_pad),
               "large": _large_graph(gen) + (LARGE_EDGES,)}
-    # values on Cora's padding edges are 0, as on the main path
-    real = (torch.arange(g.n_edge_pad, device=DEVICE) < g.n_edges)[:, None]
     cases = []
     # main-path widths: GCN 128 and 7; GAT 64 (8 heads x 8), 8 (its
     # softmax denominator), 7 and 1 (output layer)
@@ -199,24 +211,19 @@ def phase_kernels(cora) -> list[dict]:
                 ("large", 128)]:
             recv, row_ptr, n, e = graphs[label]
             values = torch.randn(e, f, device=DEVICE, generator=gen)
-            if label == "cora":
-                values = values * real
-            values = values.to(dtype)
-            cases.append(_k1_case(values, recv, row_ptr, n, label))
+            cases.append(_k1_case(values.to(dtype), recv, row_ptr, n, label))
             emit({"phase": "kernels", **cases[-1]})
     # the same main-path case with row spans over the padded edge list
     # (the last row then holds all padding edges): what skipping them buys
     padded_ptr = torch.cat([g.row_ptr[:-1], g.row_ptr.new_tensor(
         [g.n_edge_pad])])
     values = torch.randn(g.n_edge_pad, 128, device=DEVICE, generator=gen)
-    cases.append(_k1_case(values * real, g.receivers, padded_ptr, g.n_nodes,
+    cases.append(_k1_case(values, g.receivers, padded_ptr, g.n_nodes,
                           "cora_padded_spans"))
     emit({"phase": "kernels", **cases[-1]})
     for label, h in (("cora", 8), ("cora", 1), ("large", 8)):
         recv, row_ptr, n, e = graphs[label]
         scores = torch.randn(e, h, device=DEVICE, generator=gen)
-        if label == "cora":     # masked padding scores, as on the main path
-            scores = torch.where(real, scores, torch.finfo(torch.float32).min)
         cases.append(_k2_case(scores, recv, row_ptr, n, label))
         emit({"phase": "kernels", **cases[-1]})
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,

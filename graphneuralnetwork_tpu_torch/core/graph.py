@@ -25,6 +25,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 #: Edge lists are padded to a multiple of the JAX SpMM kernel's edge chunk,
 #: so ``E_pad`` (and the chunk spans) equal the reference's.
 EDGE_BLOCK = 1024
@@ -105,9 +107,12 @@ def build_graph(
     n_nodes: int,
     edge_weight: Optional[np.ndarray] = None,
     *,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> Graph:
-    """Host-side constructor: sort edges by receiver, pad to static shapes."""
+    """Host-side constructor: sort edges by receiver, pad to static shapes.
+    The arrays go to ``device``: the card unless the caller asks for the
+    CPU; raises if no card is present."""
+    device = resolve_device(device)
     senders = np.asarray(senders, dtype=np.int32).ravel()
     receivers = np.asarray(receivers, dtype=np.int32).ravel()
     n_edges = int(senders.shape[0])
@@ -208,8 +213,9 @@ def row_normalize_features(x: np.ndarray) -> np.ndarray:
 
 
 def gcn_graph(senders: np.ndarray, receivers: np.ndarray, n_nodes: int,
-              *, device: str | torch.device = "cpu") -> Graph:
-    """Symmetrise, add self loops, sym-normalise: the GCN adjacency."""
+              *, device: str | torch.device = "cuda") -> Graph:
+    """Symmetrise, add self loops, sym-normalise: the GCN adjacency, on
+    ``device`` (as ``build_graph``)."""
     s, r = symmetrize(np.asarray(senders, np.int32),
                       np.asarray(receivers, np.int32))
     s, r = add_self_loops(s, r, n_nodes)

@@ -80,8 +80,10 @@ def build(names: list[str] | None = None) -> dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, entries: dict[str, list]) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    ``entries`` maps each C entry to its ``argtypes``; every entry returns
+    a ``cudaError_t`` as ``int``."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -89,6 +91,10 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             lib.gnn_error_string.argtypes = [ctypes.c_int]
             lib.gnn_error_string.restype = ctypes.c_char_p
+            for entry, argtypes in entries.items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
     return lib
 

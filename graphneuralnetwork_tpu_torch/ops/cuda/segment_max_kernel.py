@@ -9,17 +9,16 @@ kernel ``_segmax_kernel`` of
 ``graphneuralnetwork_tpu/ops/pallas/segment_max_kernel.py``
 (``segment_max_pallas``). Forward only: callers detach the scores.
 
-A CUDA tensor launches the kernel, which reads each row's span of
-``row_ptr``; a CPU tensor takes ``segment_max_plain``, which scatters
-every edge. They agree when the edges outside all spans (a graph's
-padding) carry masked scores (``<= EMPTY``), as ``edge_softmax``'s do.
+Only the edges that ``row_ptr`` spans count: edges ``e >= row_ptr[-1]``
+(a graph's padding) are ignored. A CUDA tensor launches the kernel, which
+reads each row's span; a CPU tensor takes ``segment_max_plain`` on the
+spanned edges.
 ``segment_max.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -42,20 +41,16 @@ def segment_max_plain(scores: torch.Tensor, receivers: torch.Tensor,
                                include_self=True)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load("segment_max_kernel")
-    lib.gnn_segment_max.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    lib.gnn_segment_max.restype = ctypes.c_int
-    return lib
+_ENTRIES = {"gnn_segment_max": [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]}
 
 
 def segment_max(scores: torch.Tensor, receivers: torch.Tensor,
                 row_ptr: torch.Tensor, n_out: int) -> torch.Tensor:
     if scores.device.type == "cpu":
-        return segment_max_plain(scores, receivers, n_out)
+        n_edges = int(row_ptr[-1])
+        return segment_max_plain(scores[:n_edges], receivers[:n_edges], n_out)
     if scores.device.type != "cuda":
         raise ValueError(f"segment_max: unsupported device {scores.device}")
     if (scores.dtype != torch.float32 or scores.ndim != 2
@@ -74,7 +69,7 @@ def segment_max(scores: torch.Tensor, receivers: torch.Tensor,
                       device=scores.device)
     if out.numel() == 0:
         return out
-    lib = _lib()
+    lib = load("segment_max_kernel", _ENTRIES)
     with torch.cuda.device(scores.device):
         err = lib.gnn_segment_max(
             scores.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),

@@ -7,18 +7,16 @@ the input type. It replaces the TPU kernels ``_spmm_kernel_hilo`` /
 ``_spmm_kernel_bf16`` of ``graphneuralnetwork_tpu/ops/pallas/spmm_kernel.py``
 (``_spmm_pallas_call``); the design note is in the CUDA source.
 
-A CUDA tensor launches the kernel, which sums each row's span of
-``row_ptr``; a CPU tensor takes ``segment_sum_plain``, which scatters
-every edge by ``receivers``. The two agree when the edges outside all
-spans (``e >= row_ptr[-1]``: a graph's padding) carry zero values, as
-every caller's do.
+Only the edges that ``row_ptr`` spans count: edges ``e >= row_ptr[-1]``
+(a graph's padding) are ignored whatever their values. A CUDA tensor
+launches the kernel, which sums each row's span; a CPU tensor takes
+``segment_sum_plain`` on the spanned edges.
 ``segment_sum.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -36,15 +34,10 @@ def segment_sum_plain(values: torch.Tensor, receivers: torch.Tensor,
     return out.to(values.dtype)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load("spmm_kernel")
-    lib.gnn_segment_sum.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
-    lib.gnn_segment_sum.restype = ctypes.c_int
-    return lib
+_ENTRIES = {"gnn_segment_sum": [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p]}
 
 
 def _vector_width(values: torch.Tensor, out: torch.Tensor) -> int:
@@ -62,7 +55,8 @@ def _vector_width(values: torch.Tensor, out: torch.Tensor) -> int:
 def segment_sum(values: torch.Tensor, receivers: torch.Tensor,
                 row_ptr: torch.Tensor, n_out: int) -> torch.Tensor:
     if values.device.type == "cpu":
-        return segment_sum_plain(values, receivers, n_out)
+        n_edges = int(row_ptr[-1])
+        return segment_sum_plain(values[:n_edges], receivers[:n_edges], n_out)
     if values.device.type != "cuda":
         raise ValueError(f"segment_sum: unsupported device {values.device}")
     if values.dtype not in _DTYPE_CODES:
@@ -82,7 +76,7 @@ def segment_sum(values: torch.Tensor, receivers: torch.Tensor,
                       device=values.device)
     if out.numel() == 0:
         return out
-    lib = _lib()
+    lib = load("spmm_kernel", _ENTRIES)
     with torch.cuda.device(values.device):
         err = lib.gnn_segment_sum(
             values.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),

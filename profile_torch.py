@@ -1,6 +1,8 @@
-"""Where a training epoch's time goes on the card.
+#!/usr/bin/env python3
+"""Where a training epoch of the PyTorch port goes on the card. Run from
+the repository root:
 
-    python -m graphneuralnetwork_tpu_torch.train.profile --model gcn
+    python3 profile_torch.py --model gcn [--dtype bfloat16]
 
 Trains the CLI's model on Cora (COO layout) for ``WARMUP`` epochs, then
 times ``EPOCHS`` more with CUDA synchronisation (no profiler), then
@@ -20,12 +22,13 @@ import time
 
 import torch
 
-from ..core.device import resolve_device
-from ..data import load_cora
-from ..nn import GAT, GCN
-from .loop import create_train_state, make_eval_fn
-from .scan_loop import run_epochs
-from .schedule import make_optimizer
+from graphneuralnetwork_tpu_torch.core.device import resolve_device
+from graphneuralnetwork_tpu_torch.data import load_cora
+from graphneuralnetwork_tpu_torch.nn import GAT, GCN
+from graphneuralnetwork_tpu_torch.train.loop import (create_train_state,
+                                                     make_eval_fn)
+from graphneuralnetwork_tpu_torch.train.scan_loop import run_epochs
+from graphneuralnetwork_tpu_torch.train.schedule import make_optimizer
 
 WARMUP, EPOCHS, TOP = 20, 50, 8
 

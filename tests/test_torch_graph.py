@@ -54,7 +54,7 @@ def test_gcn_graph_arrays_equal(which, cora_arrays):
     else:
         s, r, n = _random_graph()
     jg = jgraph.gcn_graph(s, r, n)
-    tg = tgraph.gcn_graph(s, r, n)
+    tg = tgraph.gcn_graph(s, r, n, device="cpu")
     _assert_same_graph(jg, tg)
     # row_ptr spans the real edges of the same receivers; the padding
     # edges (zero values) lie in no row's span
@@ -70,7 +70,7 @@ def test_build_graph_unweighted_and_empty_rows():
     s = np.array([0, 1, 2, 2], np.int32)
     r = np.array([1, 1, 3, 0], np.int32)
     jg = jgraph.build_graph(s, r, 6)
-    tg = tgraph.build_graph(s, r, 6)
+    tg = tgraph.build_graph(s, r, 6, device="cpu")
     _assert_same_graph(jg, tg)
     counts = np.diff(tg.row_ptr.numpy())
     np.testing.assert_array_equal(counts[:5], [1, 2, 0, 1, 0])

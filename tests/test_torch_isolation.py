@@ -1,5 +1,6 @@
-"""The PyTorch port and chip_smoke.py stand alone: importing them loads
-neither JAX nor the JAX package, and no source of theirs imports either."""
+"""The PyTorch port, chip_smoke.py and profile_torch.py stand alone:
+importing them loads neither JAX nor the JAX package, and no source of
+theirs imports either."""
 
 import ast
 import os
@@ -14,6 +15,7 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "graphneuralnetwork_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "graphneuralnetwork_tpu")
+SCRIPTS = ("chip_smoke", "profile_torch")
 
 
 def _port_modules():
@@ -28,7 +30,7 @@ def _port_modules():
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / f"{s}.py" for s in SCRIPTS]
 
 
 def _imported_roots(path: Path):
@@ -48,7 +50,7 @@ def test_sources_do_not_import_jax_or_the_jax_package():
 
 
 def test_importing_the_port_loads_no_jax():
-    modules = list(_port_modules()) + ["chip_smoke"]
+    modules = list(_port_modules()) + list(SCRIPTS)
     code = "\n".join(
         ["import importlib, sys"]
         + [f"importlib.import_module({m!r})" for m in modules]

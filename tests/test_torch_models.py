@@ -40,7 +40,7 @@ def small():
         n_nodes=160, n_feats=N_FEATS, n_classes=N_CLASSES, seed=1)
     x = row_normalize_features(feats)
     n = x.shape[0]
-    return (j_gcn_graph(s, r, n), t_gcn_graph(s, r, n), x,
+    return (j_gcn_graph(s, r, n), t_gcn_graph(s, r, n, device="cpu"), x,
             labels.astype(np.int32))
 
 

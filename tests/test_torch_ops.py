@@ -34,7 +34,7 @@ def graphs():
     s = rng.integers(0, N, E).astype(np.int32)
     r = rng.integers(0, N - 5, E).astype(np.int32)
     w = rng.uniform(0.1, 1.0, E).astype(np.float32)
-    return j_build(s, r, N, w), t_build(s, r, N, w)
+    return j_build(s, r, N, w), t_build(s, r, N, w, device="cpu")
 
 
 def _rand(*shape, seed=0):
@@ -50,20 +50,40 @@ def _pad_zero(v, g):
 
 @pytest.mark.parametrize("shape", [(F,), (1,), ()])
 def test_aggregate_edges_forward_and_grad(graphs, shape):
+    """The port ignores the padding edges' values (here non-zero) and gives
+    them a zero gradient; JAX sums them, so it gets zero padding."""
     jg, tg = graphs
-    vals = _pad_zero(_rand(jg.n_edge_pad, *shape), jg)
+    vals = _rand(jg.n_edge_pad, *shape)
     cot = _rand(N, *shape, seed=1)
 
     def jloss(v):
         return jnp.sum(jops.aggregate_edges(jg, v) * cot)
 
-    jout = jops.aggregate_edges(jg, jnp.asarray(vals))
-    jgrad = jax.grad(jloss)(jnp.asarray(vals))
+    jvals = jnp.asarray(_pad_zero(vals, jg))
+    jout = jops.aggregate_edges(jg, jvals)
+    jgrad = jax.grad(jloss)(jvals)
     tv = torch.tensor(vals, requires_grad=True)
     tout = tops.aggregate_edges(tg, tv)
     (tout * torch.from_numpy(cot)).sum().backward()
     close(tout, jout)
-    close(tv.grad, jgrad)
+    close(tv.grad[:tg.n_edges], jgrad[:jg.n_edges])
+    assert torch.all(tv.grad[tg.n_edges:] == 0.0)
+
+
+@pytest.mark.parametrize("kernel", ["segment_sum", "segment_max"])
+def test_kernel_wrappers_ignore_edges_outside_the_spans(graphs, kernel):
+    """On the CPU a wrapper computes what its kernel does on the card:
+    edges at or past ``row_ptr[-1]`` do not count, whatever their values."""
+    _, tg = graphs
+    real = torch.from_numpy(_rand(tg.n_edge_pad, H, seed=17))
+    padded = real.clone()
+    padded[tg.n_edges:] = 1e6
+    real[tg.n_edges:] = 0.0 if kernel == "segment_sum" else -1e6
+    fn = k1.segment_sum if kernel == "segment_sum" else k2.segment_max
+    out = fn(padded, tg.receivers, tg.row_ptr, N)
+    assert torch.all(out < 1e5)      # no padding value leaked in
+    torch.testing.assert_close(out, fn(real, tg.receivers, tg.row_ptr, N),
+                               rtol=0, atol=0)
 
 
 def test_segment_sum_and_mean(graphs):
@@ -142,7 +162,8 @@ def test_segment_max_kernel_sentinel_maps_to_zero(graphs):
 def test_segment_sum_plain_keeps_dtype_and_accumulates_in_f32(graphs):
     _, tg = graphs
     vals = torch.from_numpy(_rand(tg.n_edge_pad, F, seed=6)).bfloat16()
-    ref = k1.segment_sum_plain(vals.float(), tg.receivers, N)
+    n = tg.n_edges
+    ref = k1.segment_sum_plain(vals[:n].float(), tg.receivers[:n], N)
     out = k1.segment_sum(vals, tg.receivers, tg.row_ptr, N)
     assert out.dtype == torch.bfloat16
     # one rounding of the float32 sum to bfloat16: within 2^-8 relative
@@ -165,7 +186,9 @@ def test_spmm_and_grads(graphs):
     (tout * torch.from_numpy(cot)).sum().backward()
     close(tout, jops.spmm(jg, jx))
     close(tx.grad, gx)
-    close(tw.grad, gw)
+    # the padding edges' weights do not count in the port: zero gradient
+    close(tw.grad[:tg.n_edges], gw[:jg.n_edges])
+    assert torch.all(tw.grad[tg.n_edges:] == 0.0)
 
 
 @pytest.mark.parametrize("heads", [None, H])

@@ -45,7 +45,7 @@ def small():
     x = row_normalize_features(feats)
     n = x.shape[0]
     tdata = NodeClassificationData(
-        graph=t_gcn_graph(s, r, n), features=torch.from_numpy(x),
+        graph=t_gcn_graph(s, r, n, device="cpu"), features=torch.from_numpy(x),
         labels=torch.from_numpy(labels.astype(np.int64)),
         train_idx=torch.arange(0, 60), val_idx=torch.arange(60, 110),
         test_idx=torch.arange(110, 160), num_classes=N_CLASSES,
