@@ -9,22 +9,32 @@ Phases, each printing one JSON line:
                as ``nvidia-smi --query-gpu=name,power.limit`` gives them;
   2. build   — compiles every kernel of ``csrc/`` with nvcc, in parallel;
   3. kernels — holds each kernel against its plain PyTorch version, on the
-               card, at the shapes the main path gives it and at one large
-               shape, and times kernel, plain version and one library call
-               (CUDA events, warmed, median);
-  4. path    — GCN and GAT on the Cora graph, kernels against plain
-               versions end to end: logits and gradients on the card agree
-               with the same model on the CPU;
+               card, at the shapes the main path gives it and at larger
+               shapes, and times kernel, plain version and, where one
+               exists, one library call (CUDA events, warmed, median):
+               K1/K2 on the Cora COO graph and a 2M-edge graph; K4, K5 and
+               K6 on the Cora GAT hybrid (8x8 and 1x7), a 2M-edge community
+               graph (8x128) and a hub graph whose densest row block holds
+               more than 8 remainder chunks and 6 tiles; float32 and
+               bfloat16, with and without attention dropout;
+  4. path    — GCN, GAT-COO and GAT on the hybrid Cora graph (dropout off,
+               then attention dropout with the same masks on both sides),
+               kernels against plain versions end to end: logits and
+               gradients on the card agree with the same model on the CPU;
   5. gcn     — the main path: ``--model gcn`` through the CLI entry point
                (auto layout -> COO), 200 epochs; K1 must have launched;
   6. gat     — ``--model gat --layout coo``, 50 epochs; K1 and K2 must have
-               launched.
+               launched;
+  7. gat_hybrid — ``--model gat`` (auto layout -> hybrid), 50 epochs in
+               float32, then in bfloat16; exact K4/K5/K6 launch counts and
+               no K1 or K2 launch.
 Then a ``kernels`` summary line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without the last line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -35,8 +45,13 @@ import numpy as np
 import torch
 
 from graphneuralnetwork_tpu_torch.cli import main as cli_main
+from graphneuralnetwork_tpu_torch.core.bcsr import (COL_BLOCK, ROW_BLOCK,
+                                                    build_hybrid)
 from graphneuralnetwork_tpu_torch.data import load_cora
 from graphneuralnetwork_tpu_torch.nn import GAT, GCN
+from graphneuralnetwork_tpu_torch.ops import bcsr_attention
+from graphneuralnetwork_tpu_torch.ops.cuda import attend_bwd_kernel as k56
+from graphneuralnetwork_tpu_torch.ops.cuda import attend_online_kernel as k4
 from graphneuralnetwork_tpu_torch.ops.cuda import build
 from graphneuralnetwork_tpu_torch.ops.cuda import segment_max_kernel as k2
 from graphneuralnetwork_tpu_torch.ops.cuda import spmm_kernel as k1
@@ -47,9 +62,21 @@ from graphneuralnetwork_tpu_torch.train.metrics import (
 #: outside the tensor cores — K1 accumulates and K2 compares in float32.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+#: Dense bf16 tensor-core rate (data sheet): the unit that could do the
+#: attend kernels' bf16 products.
+PEAK_BF16_OPS_PER_S = 989e12
+#: Special-function unit (exp) rate: 16 results per clock per SM (CUDA
+#: programming guide, compute capability 9.0) x 132 SMs x 1.98 GHz, the
+#: boost clock at which 132 SMs reach the 67 TFLOP/s float32 peak.
+PEAK_EXP_PER_S = 16 * 132 * 1.98e9
 DEVICE = "cuda"
 GCN_EPOCHS, GAT_EPOCHS = 200, 50
 LARGE_NODES, LARGE_EDGES = 65536, 2 ** 21
+#: The attend kernels' large shape: a community graph without shuffle
+#: (``bench.py``'s 2M-edge GAT shape, its locality given, not recovered).
+ATTEND_LARGE = dict(n=131072, e=2 ** 21, comm=256, heads=8, feat=128)
+#: Attention dropout of the GAT path (and its keep rate in the checks).
+GAT_DROPOUT = 0.6
 #: Kernel vs plain version: |kernel - plain| <= rtol * |plain| + atol * S,
 #: with S the row's sum of |values|. Both sum in float32 in different
 #: orders (the plain version with atomics), which costs up to ~n * 2^-24 * S
@@ -58,6 +85,20 @@ LARGE_NODES, LARGE_EDGES = 65536, 2 ** 21
 #: one bf16 step (2^-7 of the value). Segment max is exact.
 TOL = {"float32": (0.0, 1e-5), "bfloat16": (2.0 ** -7, 1e-5),
        "max": (0.0, 0.0)}
+#: K4-K6 vs their plain versions: |kernel - plain| <= rtol * |plain| +
+#: atol * max|plain| per output tensor. Both sum in float32 in other
+#: orders (rows of up to ~4,000 edges at the hub shape; the backward's sums
+#: cancel), worth ~1e-6 of the tensor's scale; 1e-4 leaves room for that
+#: and still catches a wrong mask or a lost edge. Outputs in bfloat16 (out,
+#: dx) are each rounded once from float32 sums that differ slightly, so
+#: they may differ by one bfloat16 step (2^-7 of the value).
+ATTEND_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -7, 1e-4)}
+#: Models card vs CPU (float32): the logits relative to the largest logit,
+#: each parameter's gradient relative to its own largest entry. Two
+#: summation orders of the same float32 math (COO against hybrid on the
+#: CPU) differ by ~1e-6 of each gradient's scale; an attention gradient
+#: that is wrong or missing misses by ~1.
+PATH_TOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -85,11 +126,13 @@ def time_ms(fn, reps: int = 7, batch: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
-    """The least time for the work, in ms: the larger of the bytes over the
-    memory rate and the float32 operations over their peak rate."""
+def bound(bytes_moved: int, ops: int, ops_peak: float = PEAK_F32_OPS_PER_S,
+          exps: int = 0) -> tuple[float, str]:
+    """The least time for the work, in ms: the largest of the bytes over
+    the memory rate, the arithmetic over its unit's peak rate and the
+    exponentials over the special-function rate."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = max(ops / ops_peak, exps / PEAK_EXP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -231,65 +274,290 @@ def phase_kernels(cora) -> list[dict]:
     return cases
 
 
-def phase_path(cora) -> None:
-    """The models with the kernels (card) against the plain versions (CPU)
-    on the Cora graph: same weights, dropout off, float32."""
+def _community_graph(n, e, comm, seed=0):
+    """``bench.py``'s community graph without its shuffle: ~90 % of the
+    edges stay inside blocks of ``comm`` consecutive nodes."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, n, e)
+    intra = rng.random(e) < 0.9
+    base = (s // comm) * comm
+    r = np.where(intra, np.minimum(base + rng.integers(0, comm, e), n - 1),
+                 rng.integers(0, n, e))
+    keep = s != r
+    return s[keep], r[keep]
+
+
+def _hub_graph(seed=1):
+    """4,096 nodes; row block 0 receives dense tiles from column blocks 1-8
+    and ~2,600 scattered remainder edges (more than 8 chunks of 256): the
+    TPU kernel's 2-D grid case. Every node also receives 4 random edges."""
+    rng = np.random.default_rng(seed)
+    n = 4096
+    dense_s = np.concatenate([cb * COL_BLOCK + rng.integers(0, COL_BLOCK, 256)
+                              for cb in range(1, 9)])
+    bg_r = np.repeat(np.arange(n), 4)
+    s = np.concatenate([dense_s, rng.integers(0, n, 3000),
+                        rng.integers(0, n, bg_r.shape[0])])
+    r = np.concatenate([rng.integers(0, ROW_BLOCK, dense_s.shape[0]),
+                        rng.integers(0, ROW_BLOCK, 3000), bg_r])
+    return s, r, n
+
+
+def _with_tile_dtype(hg, dtype):
+    """The same hybrid with its tile stores in ``dtype``."""
+    bcsr = dataclasses.replace(hg.bcsr, tiles=hg.bcsr.tiles.to(dtype))
+    bcsr_t = bcsr if hg.symmetric else dataclasses.replace(
+        hg.bcsr_t, tiles=hg.bcsr_t.tiles.to(dtype))
+    return dataclasses.replace(hg, bcsr=bcsr, bcsr_t=bcsr_t)
+
+
+def _attend_err(name, out, ref, dtype):
+    rtol, atol = ATTEND_TOL[dtype]
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    scale = float(ref.float().abs().max()) if ref.numel() else 0.0
+    if not bool((diff <= rtol * ref.float().abs() + atol * scale).all()):
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version (max abs err {err}, rtol {rtol}, "
+                             f"atol {atol} x {scale})")
+    return err
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _attend_work(kern, hg, heads, hf, bits, node_bytes):
+    """(bytes, flops, exps) of one call on this run's data: every input
+    that the function needs read once and every output written once
+    (``node_bytes`` holds the [N, ...] arrays); 2 flops per (edge, column)
+    per contraction over the nonzero tile slots and the remainder edges
+    (K4 and K5 one contraction, K6 two: q and dx); one exp per (edge,
+    head). Under dropout the function needs one lattice word per nonzero
+    tile slot (the other slots mask nothing), each remainder edge's
+    multipliers, and for K6 the maps into the forward's masks."""
+    bg, rem = (hg.bcsr_t, hg.rem_t) if kern == "K6" else (hg.bcsr, hg.rem)
+    e = rem.n_edges
+    nnz = int(torch.count_nonzero(bg.tiles))
+    nbytes = node_bytes + _nbytes(bg.tiles, bg.col_ids, bg.tile_off,
+                                  bg.tile_cnt, rem.row_ptr) + e * 8
+    if bits is not None:
+        nbytes += nnz * 4 + e * heads * 4
+        if kern == "K6":   # bits_tmap and rem_t_eperm
+            nbytes += _nbytes(hg.bits_tmap) + e * 4
+    contractions = 2 if kern == "K6" else 1
+    return nbytes, 2 * contractions * (nnz + e) * hf, (nnz + e) * heads
+
+
+def _attend_case(label, hg, heads, feat, dtype, dropping, gen, plain_reps):
+    """K4, K5 and K6 on random operands of one shape against their plain
+    versions, then timed. The backward's operands follow the forward's
+    (m zeroed where den == 0, as the autograd function does)."""
+    n, hf = hg.n_nodes, heads * feat
+    dname = str(dtype).replace("torch.", "")
+
+    def randn(*shape):
+        return torch.randn(*shape, device=DEVICE, generator=gen)
+
+    x, gn = randn(n, hf).to(dtype), randn(n, hf).to(dtype)
+    fs, fd, dden = randn(n, heads), randn(n, heads), randn(n, heads)
+    keep_prob = 1.0 - GAT_DROPOUT if dropping else 1.0
+    bits, keep_mul = (bcsr_attention.draw_dropout(hg, heads, keep_prob, gen)
+                      if dropping else (None, None))
+    fwd = (hg, x, fs, fd, bits, keep_mul, 0.2, keep_prob)
+    out, den, m = k4.attend_online(*fwd)
+    r_out, r_den, r_m = k4.attend_online_plain(*fwd)
+    fdm3 = torch.cat([fd, torch.where(r_den > 0, r_m, 0.0), dden], 1)
+    bwd = (hg, x, gn, fs, fdm3, bits, keep_mul, 0.2, keep_prob)
+    dfd, r_dfd = k56.attend_bwd_a(*bwd), k56.attend_bwd_a_plain(*bwd)
+    (dx, dfs), (r_dx, r_dfs) = (k56.attend_bwd_b(*bwd),
+                                k56.attend_bwd_b_plain(*bwd))
+    torch.cuda.synchronize()
+    tag = f"{label} {dname} {heads}x{feat} dropout={dropping}"
+    live = r_den > 0
+    if not bool((m[~live] == k4.NEG).all()):
+        raise AssertionError(f"K4 {tag}: m of an empty row is not NEG")
+    errs = {
+        "K4": max(_attend_err(f"K4 out {tag}", out, r_out, dname),
+                  _attend_err(f"K4 den {tag}", den, r_den, "float32"),
+                  _attend_err(f"K4 m {tag}", m[live], r_m[live], "float32")),
+        "K5": _attend_err(f"K5 dfd {tag}", dfd, r_dfd, "float32"),
+        "K6": max(_attend_err(f"K6 dx {tag}", dx, r_dx, dname),
+                  _attend_err(f"K6 dfs {tag}", dfs, r_dfs, "float32")),
+    }
+    calls = {
+        "K4": (lambda: k4.attend_online(*fwd),
+               lambda: k4.attend_online_plain(*fwd),
+               _nbytes(x, fs, fd, out, den, m)),
+        "K5": (lambda: k56.attend_bwd_a(*bwd),
+               lambda: k56.attend_bwd_a_plain(*bwd),
+               _nbytes(x, gn, fs, fdm3, dfd)),
+        "K6": (lambda: k56.attend_bwd_b(*bwd),
+               lambda: k56.attend_bwd_b_plain(*bwd),
+               _nbytes(x, gn, fs, fdm3, dx, dfs)),
+    }
+    peak = PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 else \
+        PEAK_F32_OPS_PER_S
+    cases = []
+    for kern, (kernel, plain, node_bytes) in calls.items():
+        nbytes, flops, exps = _attend_work(kern, hg, heads, hf, bits,
+                                           node_bytes)
+        b_ms, b_by = bound(nbytes, flops, peak, exps)
+        rtol, atol = ATTEND_TOL[dname]
+        cases.append(dict(
+            kernel=kern, graph=label, dtype=dname, dropout=dropping,
+            shape=[n, heads, feat], tiles=hg.bcsr.n_tiles,
+            remainder_edges=hg.rem.n_edges, max_abs_err=errs[kern],
+            rtol=rtol, atol=atol, kernel_ms=time_ms(kernel),
+            plain_ms=time_ms(plain, *plain_reps), library_ms=None,
+            library="none: no single PyTorch call computes it",
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+            exps=exps))
+        emit({"phase": "kernels", **cases[-1]})
+    return cases
+
+
+def phase_attend_kernels(cora_hybrid) -> list[dict]:
+    """K4-K6 at the GAT path's Cora shapes, a large community graph and a
+    hub graph; float32 and bfloat16 (x and tiles), dropout off and on."""
     t0 = time.perf_counter()
-    cpu_graph = cora.graph.to("cpu")
-    x_cpu, y_cpu = cora.features.cpu(), cora.labels.cpu()
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    big = ATTEND_LARGE
+    hub_s, hub_r, hub_n = _hub_graph()
+    hub = build_hybrid(hub_s, hub_r, hub_n, device=DEVICE)
+    if not (int(hub.rem_fine_cnt[0]) > 8 and int(hub.bcsr.tile_cnt[0]) > 6):
+        raise AssertionError("hub graph: row block 0 holds "
+                             f"{int(hub.rem_fine_cnt[0])} remainder chunks "
+                             f"and {int(hub.bcsr.tile_cnt[0])} tiles")
+    large = build_hybrid(*_community_graph(big["n"], big["e"], big["comm"]),
+                         big["n"], min_edges_per_tile=192, device=DEVICE)
+    emit({"phase": "kernels", "graphs": {
+        name: dict(nodes=g.n_nodes, tiles=g.bcsr.n_tiles,
+                   tiled_edges=g.bcsr.n_edges, remainder_edges=g.rem.n_edges,
+                   max_tiles=g.bcsr.max_tiles, rem_fine_max=g.rem_fine_max,
+                   symmetric=g.symmetric)
+        for name, g in (("cora", cora_hybrid), ("large", large),
+                        ("hub", hub))},
+        "seconds": time.perf_counter() - t0})
+    # Cora: the two GAT layers' widths; the large shape is costly for the
+    # plain versions, so they run fewer times there
+    shapes = [("cora", cora_hybrid, 8, 8, (3, 5)),
+              ("cora", cora_hybrid, 1, 7, (3, 5)),
+              ("hub", hub, 8, 8, (3, 5)),
+              ("large", large, big["heads"], big["feat"], (2, 1))]
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, hg, heads, feat, plain_reps in shapes:
+            hg = _with_tile_dtype(hg, dtype)
+            for dropping in (False, True):
+                cases += _attend_case(label, hg, heads, feat, dtype,
+                                      dropping, gen, plain_reps)
+    emit({"phase": "kernels", "attend_seconds": time.perf_counter() - t0,
+          "cases": len(cases)})
+    return cases
+
+
+def _card_vs_cpu(make, cpu_graph, dev_graph, data, dropout_ops=None):
+    """One model on the CPU (plain versions) and a copy with the same
+    weights on the card (kernels): (logits error relative to the largest
+    logit, {parameter: gradient error relative to that gradient's largest
+    entry}). With
+    ``dropout_ops`` the models run in training mode with feature dropout
+    off, and every GAT layer's attention dropout takes the next
+    (bits, keep_mul) of that list, on both sides."""
+    ref, dev = make(), make()
+    ref.reset_parameters(torch.Generator().manual_seed(1))
+    dev.load_state_dict(ref.state_dict())
+    dev.to(DEVICE)
     idx = torch.arange(140)
-    report = {}
-    for name, make in (("gcn", lambda: GCN(x_cpu.shape[1], hidden=128,
-                                           num_classes=cora.num_classes)),
-                       ("gat", lambda: GAT(x_cpu.shape[1], hidden=8,
-                                           num_heads=8,
-                                           num_classes=cora.num_classes))):
-        ref, dev = make(), make()
-        ref.reset_parameters(torch.Generator().manual_seed(1))
-        dev.load_state_dict(ref.state_dict())
-        dev.to(DEVICE)
-        outs = []
-        for model, graph, x, y in ((ref, cpu_graph, x_cpu, y_cpu),
-                                   (dev, cora.graph, cora.features,
-                                    cora.labels)):
-            model.eval()
+    draw = bcsr_attention.draw_dropout
+    outs = []
+    try:
+        for model, graph, x, y in ((ref, cpu_graph, data.features.cpu(),
+                                    data.labels.cpu()),
+                                   (dev, dev_graph, data.features,
+                                    data.labels)):
+            if dropout_ops is None:
+                model.eval()
+            else:
+                model.train()
+                model.dropout = 0.0
+                queue = [(b.to(x.device), k.to(x.device))
+                         for b, k in dropout_ops]
+                bcsr_attention.draw_dropout = (
+                    lambda hg, heads, keep_prob, gen, q=queue: q.pop(0))
             logits = model(graph, x)
             masked_softmax_cross_entropy(logits[idx.to(x.device)],
                                          y[idx.to(x.device)]).backward()
             outs.append((logits.detach().cpu(),
                          {k: p.grad.cpu() for k, p in
                           model.named_parameters()}))
-        (lr, gr), (ld, gd) = outs
-        if not torch.isfinite(ld).all() or ld.shape != lr.shape:
-            raise AssertionError(f"{name}: bad logits on the card")
-        scale = float(lr.abs().max())
-        err = float((ld - lr).abs().max()) / scale
-        # gradients relative to the model's largest entry: the attention
-        # vectors' gradients cancel to ~1e-4 of it
-        gscale = max(float(g.abs().max()) for g in gr.values())
-        gerr = max(float((gd[k] - g).abs().max())
-                   for k, g in gr.items()) / gscale
-        if err > 1e-4 or gerr > 1e-3:
+    finally:
+        bcsr_attention.draw_dropout = draw
+    (lr, gr), (ld, gd) = outs
+    if not torch.isfinite(ld).all() or ld.shape != lr.shape:
+        raise AssertionError("bad logits on the card")
+    err = float((ld - lr).abs().max()) / float(lr.abs().max())
+    # each gradient against its own scale: the attention vectors' gradients
+    # (K5's dfd and K6's dfs) are ~1e-3 of the linear weights'
+    gerr = {k: float((gd[k] - g).abs().max()) / float(g.abs().max())
+            for k, g in gr.items()}
+    return err, gerr
+
+
+def phase_path(cora, cora_h, cora_hg) -> None:
+    """The models with the kernels (card) against the plain versions (CPU)
+    on the Cora graph, same weights, float32: GCN and GAT on COO, GAT on
+    the hybrid layout without and with attention dropout (the same masks,
+    drawn on the CPU, on both sides)."""
+    t0 = time.perf_counter()
+    n_feats, n_cls = cora.features.shape[1], cora.num_classes
+
+    def gat():
+        return GAT(n_feats, hidden=8, num_heads=8, num_classes=n_cls)
+
+    hg_cpu = cora_hg.to("cpu")
+    gen = torch.Generator().manual_seed(2)
+    masks = [bcsr_attention.draw_dropout(hg_cpu, heads, 1.0 - GAT_DROPOUT,
+                                         gen) for heads in (8, 1)]
+    runs = {
+        "gcn": (lambda: GCN(n_feats, hidden=128, num_classes=n_cls),
+                cora.graph, cora, None),
+        "gat": (gat, cora.graph, cora, None),
+        "gat_hybrid": (gat, cora_hg, cora_h, None),
+        "gat_hybrid_dropout": (gat, cora_hg, cora_h, masks),
+    }
+    report = {}
+    for name, (make, graph, data, ops) in runs.items():
+        err, gerr = _card_vs_cpu(make, graph.to("cpu"), graph, data, ops)
+        if err > PATH_TOL or max(gerr.values()) > PATH_TOL:
             raise AssertionError(f"{name}: card vs CPU logits rel err {err}, "
-                                 f"grad rel err {gerr}")
+                                 f"grad rel errs {gerr}")
         report[name] = dict(logits_rel_err=err, grad_rel_err=gerr)
     emit({"phase": "path", "seconds": time.perf_counter() - t0,
-          "tolerance": {"logits": 1e-4, "grads": 1e-3}, **report})
+          "tolerance": PATH_TOL, **report})
+
+
+#: The launch counter of each kernel's wrapper.
+COUNTERS = {"K1": k1.segment_sum, "K2": k2.segment_max,
+            "K4": k4.attend_online, "K5": k56.attend_bwd_a,
+            "K6": k56.attend_bwd_b}
 
 
 def _drive(phase, argv, expect):
     """Run the CLI with the launch counts set to 0 just before and read
     just after; ``expect`` maps each kernel to its launches per epoch and
-    per evaluation."""
-    k1.segment_sum.launches = 0
-    k2.segment_max.launches = 0
+    per evaluation (a kernel it leaves out must not launch)."""
+    for wrapper in COUNTERS.values():
+        wrapper.launches = 0
     t0 = time.perf_counter()
     res = cli_main(argv)
-    launches = {"K1": k1.segment_sum.launches,
-                "K2": k2.segment_max.launches}
+    launches = {k: w.launches for k, w in COUNTERS.items()}
     seconds = time.perf_counter() - t0
     epochs = res["epochs"]
-    for kern, (per_epoch, per_eval) in expect.items():
+    for kern in COUNTERS:
+        per_epoch, per_eval = expect.get(kern, (0, 0))
         want = per_epoch * epochs + per_eval
         if launches[kern] != want:
             raise AssertionError(f"{phase}: {kern} launched "
@@ -304,24 +572,48 @@ def _drive(phase, argv, expect):
     return launches
 
 
-#: name, source, TPU kernel replaced, and the width of the float32 Cora
-#: case whose times the summary reports (GCN's first layer; GAT's 8 heads)
+def _cora_width(width):
+    return lambda c: c["graph"] == "cora" and c["shape"][1] == width
+
+
+def _cora_gat_train(c):
+    """The attend kernels' timed case: the first GAT layer (8 x 8) of a
+    training step, with attention dropout."""
+    return c["graph"] == "cora" and c["shape"][1:] == [8, 8] and c["dropout"]
+
+
+#: name, source, TPU kernel replaced, and which float32 case the summary
+#: times (GCN's first layer for K1; GAT's 8 heads for K2; the first GAT
+#: layer of a training step for K4-K6)
 KERNELS = {
     "K1": ("segment_sum", "graphneuralnetwork_tpu_torch/csrc/spmm_kernel.cu",
-           "graphneuralnetwork_tpu/ops/pallas/spmm_kernel.py:94", 128),
+           "graphneuralnetwork_tpu/ops/pallas/spmm_kernel.py:94",
+           _cora_width(128)),
     "K2": ("segment_max",
            "graphneuralnetwork_tpu_torch/csrc/segment_max_kernel.cu",
-           "graphneuralnetwork_tpu/ops/pallas/segment_max_kernel.py:28", 8),
+           "graphneuralnetwork_tpu/ops/pallas/segment_max_kernel.py:28",
+           _cora_width(8)),
+    "K4": ("attend_online",
+           "graphneuralnetwork_tpu_torch/csrc/attend_online_kernel.cu",
+           "graphneuralnetwork_tpu/ops/pallas/attend_online_kernel.py:198",
+           _cora_gat_train),
+    "K5": ("attend_bwd_a",
+           "graphneuralnetwork_tpu_torch/csrc/attend_bwd_kernel.cu",
+           "graphneuralnetwork_tpu/ops/pallas/attend_bwd_kernel.py:68",
+           _cora_gat_train),
+    "K6": ("attend_bwd_b",
+           "graphneuralnetwork_tpu_torch/csrc/attend_bwd_kernel.cu",
+           "graphneuralnetwork_tpu/ops/pallas/attend_bwd_kernel.py:251",
+           _cora_gat_train),
 }
 
 
 def summary(cases, launches) -> dict:
     rows = []
-    for kern, (name, source, replaces, width) in KERNELS.items():
+    for kern, (name, source, replaces, pick) in KERNELS.items():
         f32 = [c for c in cases
                if c["kernel"] == kern and c["dtype"] == "float32"]
-        c = next(c for c in f32
-                 if c["graph"] == "cora" and c["shape"][1] == width)
+        c = next(c for c in f32 if pick(c))
         rows.append({
             "name": f"{kern} {name}", "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[kern],
@@ -329,7 +621,8 @@ def summary(cases, launches) -> dict:
             "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"],
-            "timed_case": f"float32 {c['shape']} on cora",
+            "timed_case": f"float32 {c['shape']} on cora"
+                          + (" with dropout" if c.get("dropout") else ""),
         })
     return {"kernels": rows}
 
@@ -338,15 +631,31 @@ def main() -> None:
     phase_device()
     phase_build()
     cora = load_cora(seed=0, layout="coo", device=DEVICE)
-    cases = phase_kernels(cora)
-    phase_path(cora)
-    gcn = _drive("gcn", ["--model", "gcn", "--epochs", str(GCN_EPOCHS),
-                         "--device", DEVICE, "--quiet"],
-                 {"K1": (4, 2), "K2": (0, 0)})
-    gat = _drive("gat", ["--model", "gat", "--layout", "coo", "--epochs",
-                         str(GAT_EPOCHS), "--device", DEVICE, "--quiet"],
-                 {"K1": (8, 4), "K2": (4, 2)})
-    emit(summary(cases, {k: gcn[k] + gat[k] for k in gcn}))
+    # the GAT data as the CLI loads them: auto layout -> hybrid, clustered,
+    # unit weights
+    cora_h = load_cora(seed=0, layout="auto", layout_objective="attention",
+                       device=DEVICE, model="gat")
+    cora_hg = cora_h.graph
+    if not hasattr(cora_hg, "bcsr"):
+        raise AssertionError("GAT on Cora did not choose the hybrid layout")
+    cases = phase_kernels(cora) + phase_attend_kernels(cora_hg)
+    phase_path(cora, cora_h, cora_hg)
+    runs = [
+        _drive("gcn", ["--model", "gcn", "--epochs", str(GCN_EPOCHS),
+                       "--device", DEVICE, "--quiet"], {"K1": (4, 2)}),
+        _drive("gat", ["--model", "gat", "--layout", "coo", "--epochs",
+                       str(GAT_EPOCHS), "--device", DEVICE, "--quiet"],
+               {"K1": (8, 4), "K2": (4, 2)}),
+    ]
+    # per epoch: 2 layers x (train + val forward) K4, 2 layers x backward
+    # K5 and K6; the final test evaluation adds one forward
+    hybrid = {"K4": (4, 2), "K5": (2, 0), "K6": (2, 0)}
+    for dtype in ("float32", "bfloat16"):
+        runs.append(_drive(
+            "gat_hybrid" + ("_bf16" if dtype == "bfloat16" else ""),
+            ["--model", "gat", "--epochs", str(GAT_EPOCHS), "--dtype", dtype,
+             "--device", DEVICE, "--quiet"], hybrid))
+    emit(summary(cases, {k: sum(run[k] for run in runs) for k in COUNTERS}))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

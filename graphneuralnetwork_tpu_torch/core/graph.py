@@ -79,8 +79,10 @@ class Graph:
                      if isinstance(getattr(self, f.name), torch.Tensor)})
 
 
-def compute_chunk_spans(receivers_sorted: np.ndarray, n_out: int):
-    """Per-128-row-block (first edge chunk, chunk count, max count).
+def compute_chunk_spans(receivers_sorted: np.ndarray, n_out: int,
+                        chunk: int = EDGE_BLOCK):
+    """Per-128-row-block (first edge chunk, chunk count, max count) for
+    edge chunks of ``chunk`` edges.
 
     Copy of ``ops/pallas/spmm_kernel.py:compute_chunk_spans`` of the JAX
     package, kept so the layout arrays compare equal.
@@ -89,8 +91,8 @@ def compute_chunk_spans(receivers_sorted: np.ndarray, n_out: int):
     bounds = np.arange(n_row_blocks + 1) * ROW_BLOCK
     row_start = np.searchsorted(receivers_sorted, bounds, side="left")
     row_start[-1] = receivers_sorted.shape[0]
-    lo = row_start[:-1] // EDGE_BLOCK
-    hi = -(-row_start[1:] // EDGE_BLOCK)
+    lo = row_start[:-1] // chunk
+    hi = -(-row_start[1:] // chunk)
     cnt = np.maximum(hi - lo, 0).astype(np.int32)
     return lo.astype(np.int32), cnt, int(max(cnt.max(initial=1), 1))
 
@@ -221,3 +223,45 @@ def gcn_graph(senders: np.ndarray, receivers: np.ndarray, n_nodes: int,
     s, r = add_self_loops(s, r, n_nodes)
     w = sym_normalize_weights(s, r, n_nodes)
     return build_graph(s, r, n_nodes, w, device=device)
+
+
+def gcn_graph_hybrid(senders: np.ndarray, receivers: np.ndarray,
+                     n_nodes: int, perm: Optional[np.ndarray] = None, *,
+                     device: str | torch.device = "cuda"):
+    """The GCN adjacency on the hybrid layout: symmetrise, add self loops,
+    cluster-reorder the nodes (``perm``, e.g. from a ``choose_layout``
+    probe, or ``locality_order``), sym-normalise, then tile
+    (``core/bcsr.py``; symmetric, so the forward tiles are the transpose).
+
+    Returns ``(hybrid_graph, perm)`` with ``perm[new] = old``: the caller
+    permutes node arrays by ``perm`` and maps index arrays through
+    ``invert_permutation(perm)``.
+    """
+    from .bcsr import build_hybrid
+    from .reorder import locality_order, relabel_edges
+
+    s, r = symmetrize(np.asarray(senders, np.int32),
+                      np.asarray(receivers, np.int32))
+    s, r = add_self_loops(s, r, n_nodes)
+    if perm is None:
+        perm = locality_order(s, r, n_nodes)
+    s, r = relabel_edges(perm, s, r)
+    w = sym_normalize_weights(s, r, n_nodes)
+    return build_hybrid(s, r, n_nodes, w, symmetric=True,
+                        device=device), perm
+
+
+def gat_graph_hybrid(senders: np.ndarray, receivers: np.ndarray,
+                     n_nodes: int, *, dtype: torch.dtype = torch.float32,
+                     device: str | torch.device = "cuda"):
+    """GAT's adjacency on the hybrid layout: symmetrise, add self loops,
+    unit weights (attention normalises over the edge set itself), tiles
+    in ``dtype`` (bfloat16 holds the edge counts exactly). The nodes keep
+    their labels: pass edges already relabelled by a locality order."""
+    from .bcsr import build_hybrid
+
+    s, r = symmetrize(np.asarray(senders, np.int32),
+                      np.asarray(receivers, np.int32))
+    s, r = add_self_loops(s, r, n_nodes)
+    return build_hybrid(s, r, n_nodes, symmetric=True, dtype=dtype,
+                        device=device)

@@ -1,9 +1,8 @@
 """Automatic graph-layout selection: probe locality, pick hybrid or COO.
 
 Copy of ``graphneuralnetwork_tpu/core/layout.py`` (host numpy), so that
-``--layout auto`` makes the reference's decision on the same edges. The
-port runs only the COO layout so far: a ``"hybrid"`` decision is raised as
-``NotImplementedError`` by the loaders (ROADMAP.md, queue 1 item 7).
+``--layout auto`` makes the reference's decision on the same edges; the
+loader then builds the chosen layout (``core/bcsr.py`` for hybrid).
 
 The thresholds are the reference's. ``spmm`` decides on the modeled
 hybrid/COO traffic ratio (hybrid iff <= 0.75); ``attention`` on the

@@ -13,24 +13,22 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ..core.bcsr import HybridGraph
 from ..core.device import resolve_device
-from ..core.graph import (Graph, add_self_loops, gcn_graph,
+from ..core.graph import (Graph, add_self_loops, gat_graph_hybrid,
+                          gcn_graph, gcn_graph_hybrid,
                           row_normalize_features, symmetrize)
-
-#: Raised for a layout the port does not build yet.
-HYBRID_NOT_PORTED = (
-    "the hybrid (dense-tile BCSR + COO remainder) layout is not ported to "
-    "PyTorch yet: ROADMAP.md queue 1 item 7 (hybrid layout builders), then "
-    "items 8-9 (kernels K3-K6). Use --layout coo.")
+from ..core.reorder import invert_permutation, locality_order
 
 
 @dataclass(frozen=True)
 class NodeClassificationData:
-    graph: Graph
+    graph: Graph | HybridGraph
     features: torch.Tensor     # float32[N, F] row-normalised
     labels: torch.Tensor       # int64[N]
     train_idx: torch.Tensor    # int64
@@ -38,6 +36,10 @@ class NodeClassificationData:
     test_idx: torch.Tensor
     num_classes: int
     device: torch.device
+    #: the raw directed edges (relabelled under the hybrid layout), from
+    #: which the hybrid layout builds GAT's unit-weight adjacency
+    raw_senders: Optional[np.ndarray] = None
+    raw_receivers: Optional[np.ndarray] = None
 
 
 def synthetic_citation_graph(
@@ -102,18 +104,30 @@ def load_cora(root: str | None = None, name: str = "cora",
               seed: int = 0,
               layout: str = "coo",
               layout_objective: str = "spmm",
-              device: str | torch.device = "cuda") -> NodeClassificationData:
+              device: str | torch.device = "cuda", *,
+              model: str = "gcn",
+              tile_dtype: torch.dtype = torch.float32
+              ) -> NodeClassificationData:
     """Load Cora/Citeseer from ``root`` if present, else synthesise at the
     named dataset's shape; tensors go to ``device`` (the card by default).
 
-    ``layout="auto"`` probes the post-clustering tile fill as the reference
-    does; a ``"hybrid"`` request or decision raises NotImplementedError.
+    ``layout="hybrid"`` builds the locality-clustered tile layout
+    (``core/bcsr.py``): nodes are relabelled by the clustering permutation,
+    features and labels permuted to match, and the split indices mapped
+    through its inverse. ``layout="auto"`` probes the post-clustering tile
+    fill as the reference does and picks hybrid or COO; a hybrid decision
+    reuses the probe's permutation.
+
+    ``model`` picks the hybrid adjacency: ``"gcn"`` the sym-normalised
+    one, ``"gat"`` unit weights over the relabelled raw edges with tiles
+    in ``tile_dtype`` (the reference CLI's GAT rebuild; bfloat16 holds the
+    edge counts exactly). The COO graph is the same for both.
     """
     device = resolve_device(device)
-    if layout not in ("auto", "coo"):
-        if layout == "hybrid":
-            raise NotImplementedError(HYBRID_NOT_PORTED)
+    if layout not in ("auto", "coo", "hybrid"):
         raise ValueError(f"unknown layout {layout!r}")
+    if model not in ("gcn", "gat"):
+        raise ValueError(f"unknown model {model!r}")
     if root is not None and os.path.exists(
             os.path.join(root, f"{name}.content")):
         feats, labels, s, r = _read_content_cites(root, name)
@@ -124,29 +138,50 @@ def load_cora(root: str | None = None, name: str = "cora",
     n = feats.shape[0]
     feats = row_normalize_features(feats)
     num_classes = int(labels.max()) + 1
+    train_idx = np.arange(0, 140)
+    val_idx = np.arange(200, 500)
+    test_idx = np.arange(500, 1500)
 
+    perm = None
+    if layout in ("auto", "hybrid"):
+        # the exact edge set the hybrid build tiles
+        s_p, r_p = add_self_loops(*symmetrize(s, r), n)
     if layout == "auto":
         from ..core.layout import choose_layout
-        s_p, r_p = symmetrize(s, r)
-        s_p, r_p = add_self_loops(s_p, r_p, n)
-        layout, _, _ = choose_layout(
+        layout, _, perm = choose_layout(
             s_p, r_p, n, objective=layout_objective, verbose=True, tag=name)
-        if layout == "hybrid":
-            raise NotImplementedError(
-                f"--layout auto chose hybrid for {name}: {HYBRID_NOT_PORTED}")
 
-    def idx(lo, hi):
-        return torch.arange(lo, hi, dtype=torch.int64, device=device)
+    if layout == "hybrid":
+        if perm is None:
+            perm = locality_order(s_p, r_p, n)
+        inv = invert_permutation(perm)
+        s_new, r_new = inv[s].astype(np.int32), inv[r].astype(np.int32)
+        if model == "gat":
+            graph = gat_graph_hybrid(s_new, r_new, n, dtype=tile_dtype,
+                                     device=device)
+        else:
+            graph, _ = gcn_graph_hybrid(s, r, n, perm=perm, device=device)
+        s, r = s_new, r_new
+        feats, labels = feats[perm], labels[perm]
+        train_idx, val_idx, test_idx = (inv[train_idx], inv[val_idx],
+                                        inv[test_idx])
+    else:
+        graph = gcn_graph(s, r, n, device=device)
+
+    def idx(a):
+        return torch.from_numpy(np.asarray(a, np.int64)).to(device)
 
     return NodeClassificationData(
-        graph=gcn_graph(s, r, n, device=device),
+        graph=graph,
         features=torch.from_numpy(feats).to(device),
         labels=torch.from_numpy(labels.astype(np.int64)).to(device),
-        train_idx=idx(0, 140),
-        val_idx=idx(200, 500),
-        test_idx=idx(500, 1500),
+        train_idx=idx(train_idx),
+        val_idx=idx(val_idx),
+        test_idx=idx(test_idx),
         num_classes=num_classes,
         device=device,
+        raw_senders=s,
+        raw_receivers=r,
     )
 
 

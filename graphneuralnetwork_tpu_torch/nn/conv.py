@@ -1,9 +1,10 @@
 """Message-passing convolution layers (torch.nn).
 
-Port of ``graphneuralnetwork_tpu/nn/conv.py``: ``GCNConv`` and the COO
-branch of ``GATConv``. Parameter names and shapes follow the flax modules
-(``linear``, ``bias``, ``attn_src``/``attn_dst`` [H, F]); a flax Dense
-kernel [in, out] is the transpose of ``linear.weight`` (``params.py``).
+Port of ``graphneuralnetwork_tpu/nn/conv.py``: ``GCNConv`` (COO layout)
+and ``GATConv`` (COO and hybrid layouts). Parameter names and shapes follow
+the flax modules (``linear``, ``bias``, ``attn_src``/``attn_dst`` [H, F]);
+a flax Dense kernel [in, out] is the transpose of ``linear.weight``
+(``params.py``).
 
 ``dtype`` is the compute dtype (mixed precision): parameters stay float32,
 the dense ``X·W`` and the aggregation run in ``dtype`` (the segment-sum
@@ -19,8 +20,10 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..core.bcsr import HybridGraph
 from ..core.graph import Graph
 from ..ops import edge_softmax
+from ..ops.bcsr_attention import gat_tiled_attend
 from ..ops.spmm import spmm, spmm_weighted
 
 
@@ -47,8 +50,9 @@ def dropout(x: torch.Tensor, rate: float,
 def _hybrid_not_ported(graph) -> None:
     if not isinstance(graph, Graph):
         raise NotImplementedError(
-            f"{type(graph).__name__} layouts are not ported yet; only the "
-            "COO Graph is (ROADMAP.md queue 1, items 7-9)")
+            f"GCNConv on a {type(graph).__name__} needs the dense-tile SpMM "
+            "kernel K3, which is not ported yet (ROADMAP.md queue 1 item 8); "
+            "use --layout coo for GCN")
 
 
 class GCNConv(nn.Module):
@@ -75,7 +79,8 @@ class GCNConv(nn.Module):
 
 
 class GATConv(nn.Module):
-    """Multi-head graph attention over the edge list (COO layout).
+    """Multi-head graph attention over the edge list (COO layout) or the
+    dense tiles and remainder of a ``HybridGraph``.
 
     Per head: e_ij = LeakyReLU(a_src·Wh_j + a_dst·Wh_i) for edge j→i,
     α = softmax of e over the incoming edges of i, out_i = Σ α_ij Wh_j.
@@ -104,9 +109,8 @@ class GATConv(nn.Module):
         for a in (self.attn_src, self.attn_dst):
             glorot_uniform_(a, self.num_heads, self.features, generator)
 
-    def forward(self, graph: Graph, x: torch.Tensor,
+    def forward(self, graph: Graph | HybridGraph, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        _hybrid_not_ported(graph)
         if self.dtype is not None:
             x = x.to(self.dtype)
         n = x.shape[0]
@@ -118,9 +122,24 @@ class GATConv(nn.Module):
         f_src = torch.einsum("nhf,hf->nh", hf, self.attn_src)
         f_dst = torch.einsum("nhf,hf->nh", hf, self.attn_dst)
 
+        if hasattr(graph, "bcsr"):
+            # hybrid layout: softmax attention over the dense tiles and the
+            # COO remainder, no per-edge [E, H, F] tensor (K4-K6)
+            dropping = self.training and self.attn_dropout > 0.0
+            out = gat_tiled_attend(
+                graph, h, f_src, f_dst,
+                negative_slope=self.negative_slope,
+                attn_dropout=self.attn_dropout if dropping else 0.0,
+                generator=generator)
+            if self.concat_heads:
+                return out.reshape(n, self.num_heads * self.features)
+            return out.mean(dim=1)
+
         scores = f_src[graph.senders] + f_dst[graph.receivers]
         scores = F.leaky_relu(scores, self.negative_slope)
-        alpha = edge_softmax(graph, scores).to(h.dtype)
+        # alpha stays float32: the weighted products and their gradients
+        # (the attention vectors' gradients cancel) are formed in float32
+        alpha = edge_softmax(graph, scores)
         if self.training:
             alpha = dropout(alpha, self.attn_dropout, generator)
         out = spmm_weighted(graph, alpha, h)      # [N, H, F], one K1 call

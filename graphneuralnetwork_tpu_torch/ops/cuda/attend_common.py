@@ -1,0 +1,169 @@
+"""What the hybrid attend kernels K4-K6 and their plain versions share.
+
+The dropout hash (``head_keep``) and its constants, the edge lists that the
+plain versions build from the hybrid layout, and the checks and launch
+arguments of the three wrappers. Pure PyTorch: nothing here builds or
+loads a kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from ...core.bcsr import COL_BLOCK, ROW_BLOCK, BCSRGraph, HybridGraph
+
+NEG = -1e30  # "-inf" stand-in that survives float32 arithmetic
+_MASK32 = 0xFFFFFFFF
+#: Columns per lane the kernels are compiled for.
+CPL_CHOICES = (1, 2, 4, 8, 16, 32)
+#: Elements of a per-edge [E, H*F] temporary of the plain versions.
+PLAIN_CHUNK_ELEMENTS = 1 << 26
+
+
+def head_mul(h: int) -> int:
+    """Odd multiplier that decorrelates head ``h``'s dropout stream."""
+    return (0x9E3779B1 * (2 * h + 1)) & _MASK32
+
+
+def keep_thresh(keep_prob: float) -> int:
+    """uint32 threshold: a hashed word below it keeps its slot."""
+    return min(int(round(keep_prob * 2.0 ** 32)), 2 ** 32 - 1)
+
+
+def _mul32(v: torch.Tensor, c: int) -> torch.Tensor:
+    """``(v * c) mod 2^32`` for int64 ``v`` in [0, 2^32): split into 16-bit
+    halves so that no product leaves int64."""
+    lo = (v & 0xFFFF) * c
+    hi = ((v >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _MASK32
+
+
+def head_keep(bits: torch.Tensor, h: int, keep_prob: float) -> torch.Tensor:
+    """Per-head Bernoulli(``keep_prob``) from the shared uint32 lattice
+    (stored as int32 with the same bits): bit-equal to the JAX package's
+    ``_head_keep``. Computed in int64 masked to 32 bits, because torch's
+    int32 ``>>`` is arithmetic."""
+    v = _mul32(bits.to(torch.int64) & _MASK32, head_mul(h))
+    v = v ^ (v >> 13)
+    v = _mul32(v, 0x5BD1E995)
+    v = v ^ (v >> 15)
+    return v < keep_thresh(keep_prob)
+
+
+def keep_factors(bits: torch.Tensor, heads: int,
+                 keep_prob: float) -> torch.Tensor:
+    """[E, H] numerator multiplier of tile slots with lattice words
+    ``bits`` [E]: ``1 / keep_prob`` where ``head_keep`` keeps, else 0."""
+    keep = torch.stack([head_keep(bits, h, keep_prob)
+                        for h in range(heads)], dim=1)
+    return keep.float() * (1.0 / keep_prob)
+
+
+def leaky(v: torch.Tensor, slope: float) -> torch.Tensor:
+    return torch.where(v > 0, v, slope * v)
+
+
+def leaky_grad(v: torch.Tensor, slope: float) -> torch.Tensor:
+    return torch.where(v > 0, 1.0, slope)
+
+
+def tile_slots(bg: BCSRGraph):
+    """Every nonzero tile slot as (tile, i, j, row node, col node, weight);
+    a slot's row is ``row_ids[t]*128 + i`` and its col ``col_ids[t]*128+j``
+    (receiver and sender for the forward tiles, the other way round for the
+    transpose tiles)."""
+    t, i, j = torch.nonzero(bg.tiles, as_tuple=True)
+    rows = bg.row_ids[t].long() * ROW_BLOCK + i
+    cols = bg.col_ids[t].long() * COL_BLOCK + j
+    return t, i, j, rows, cols, bg.tiles[t, i, j].float()
+
+
+def edge_chunks(n_edges: int, width: int) -> Iterator[slice]:
+    """Slices of the edge list that bound a per-edge [chunk, width]
+    temporary to ``PLAIN_CHUNK_ELEMENTS``."""
+    step = max(PLAIN_CHUNK_ELEMENTS // max(width, 1), 1)
+    for lo in range(0, n_edges, step):
+        yield slice(lo, min(lo + step, n_edges))
+
+
+def columns_per_lane(heads: int, feat: int) -> int:
+    """Feature columns per lane: a warp gives each head 32 / Hp lanes (Hp
+    the head count rounded up to a power of two), which share its
+    ``feat`` columns."""
+    group = 32 // (1 << (heads - 1).bit_length())
+    for cpl in CPL_CHOICES:
+        if group * cpl >= feat:
+            return cpl
+    raise ValueError(f"attend kernels: {feat} features per head exceed "
+                     f"{group * CPL_CHOICES[-1]} at {heads} heads")
+
+
+def check_operands(name: str, hg: HybridGraph, x: torch.Tensor,
+                   heads: int, bits: Optional[torch.Tensor],
+                   keep_mul: Optional[torch.Tensor], dropping: bool,
+                   **node_arrays: torch.Tensor) -> None:
+    """Raise on what the CUDA kernels do not take."""
+    n = hg.n_nodes
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: x dtype {x.dtype} is not float32 or "
+                        "bfloat16")
+    if x.ndim != 2 or x.shape[0] != n or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be a contiguous [{n}, H*F] "
+                         f"tensor, got {tuple(x.shape)}")
+    if not 1 <= heads <= 32 or x.shape[1] % heads:
+        raise ValueError(f"{name}: {heads} heads do not divide "
+                         f"{x.shape[1]} columns (at most 32 heads)")
+    if hg.device != x.device:
+        raise ValueError(f"{name}: graph on {hg.device}, x on {x.device}")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: x too large for int32 offsets")
+    for key, arr in node_arrays.items():
+        want = x.dtype if key == "gn" else torch.float32
+        if (arr.dtype != want or arr.device != x.device
+                or arr.shape[0] != n or not arr.is_contiguous()):
+            raise ValueError(f"{name}: {key} must be a contiguous {want} "
+                             f"[{n}, ...] tensor on {x.device}")
+    for bg in (hg.bcsr, hg.bcsr_t):
+        if bg.tiles.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name}: tile dtype {bg.tiles.dtype}")
+    if dropping:
+        if bits is None or keep_mul is None:
+            raise ValueError(f"{name}: dropout needs bits and keep_mul")
+        if (bits.dtype != torch.int32 or bits.device != x.device
+                or bits.shape != hg.bcsr.tiles.shape
+                or not bits.is_contiguous()):
+            raise ValueError(f"{name}: bits must be a contiguous int32 "
+                             f"{tuple(hg.bcsr.tiles.shape)} tensor")
+        if (keep_mul.dtype != torch.float32 or keep_mul.device != x.device
+                or keep_mul.shape != (hg.rem.n_edge_pad, heads)
+                or not keep_mul.is_contiguous()):
+            raise ValueError(f"{name}: keep_mul must be a contiguous "
+                             f"float32 [{hg.rem.n_edge_pad}, {heads}] "
+                             "tensor")
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+#: ctypes argument types of the trailing scalars every entry takes:
+#: n, heads, feat, x_bf16, tile_bf16, cpl, slope, inv_keep, thresh,
+#: dropping, stream.
+SCALAR_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float,
+                                        ctypes.c_uint32, ctypes.c_int,
+                                        ctypes.c_void_p]
+
+
+def scalar_args(x: torch.Tensor, tiles: torch.Tensor, heads: int,
+                slope: float, keep_prob: float, dropping: bool) -> list:
+    n, hf = x.shape
+    return [n, heads, hf // heads, int(x.dtype == torch.bfloat16),
+            int(tiles.dtype == torch.bfloat16),
+            columns_per_lane(heads, hf // heads),
+            float(slope), float(np.float32(1.0 / keep_prob)),
+            keep_thresh(keep_prob) if dropping else 0, int(dropping),
+            torch.cuda.current_stream(x.device).cuda_stream]

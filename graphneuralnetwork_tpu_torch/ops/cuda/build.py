@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own into ``build/torch_kernels/<name>-<hash>.so`` at the repository root,
-keyed by a hash of the source and the flags, so an edited source is rebuilt
+keyed by a hash of the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source is rebuilt
 and an unchanged one is reused. ``build()`` starts one ``nvcc`` per source,
 all at once, and waits for all of them. A failed build raises; nothing
 falls back to another implementation.
@@ -42,9 +43,12 @@ def kernel_names() -> list[str]:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
+    """The library's path, keyed by its source, the shared headers and the
+    flags."""
+    sources = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        b"".join(p.read_bytes() for p in sources)
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

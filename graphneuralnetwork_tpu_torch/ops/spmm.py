@@ -26,16 +26,18 @@ def spmm_weighted(graph: Graph, edge_weight: torch.Tensor,
 
     ``edge_weight`` may be [E] or [E, H] (multi-head); with heads ``x`` is
     [N, H, F] and the result [N, H, F], computed in ONE aggregation of
-    [E, H·F] values.
+    [E, H·F] values. The products ``x[s] * w`` are formed in float32 and
+    cast to ``x``'s type once, where they enter the aggregation, so their
+    gradients (per-edge dot products for ``w``) stay float32 as well.
     """
-    gathered = x[graph.senders]
-    if edge_weight.ndim == 1:
-        return aggregate_edges(
-            graph, gathered * edge_weight[:, None].to(gathered.dtype))
+    gathered = x[graph.senders].float()
+    w = edge_weight.float()
+    if w.ndim == 1:
+        return aggregate_edges(graph, (gathered * w[:, None]).to(x.dtype))
     if gathered.ndim != 3:
         raise ValueError("multi-head spmm expects x of shape [N, H, F]")
     e, h, f = gathered.shape
-    vals = gathered * edge_weight[:, :, None].to(gathered.dtype)
+    vals = (gathered * w[:, :, None]).to(x.dtype)
     out = aggregate_edges(graph, vals.reshape(e, h * f))
     return out.reshape(graph.n_nodes, h, f)
 

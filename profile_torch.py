@@ -2,9 +2,11 @@
 """Where a training epoch of the PyTorch port goes on the card. Run from
 the repository root:
 
-    python3 profile_torch.py --model gcn [--dtype bfloat16]
+    python3 profile_torch.py --model gcn|gat [--dtype bfloat16]
+    python3 profile_torch.py --model gat --layout hybrid [--dtype bfloat16]
 
-Trains the CLI's model on Cora (COO layout) for ``WARMUP`` epochs, then
+Trains the CLI's model on Cora (COO layout, or for GAT the CLI's
+unit-weight hybrid layout) for ``WARMUP`` epochs, then
 times ``EPOCHS`` more with CUDA synchronisation (no profiler), then
 traces the same number under ``torch.profiler``. Prints one JSON line:
 wall ms per epoch (untraced and traced), device kernel ms per epoch, the
@@ -38,11 +40,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--model", choices=["gcn", "gat"], default="gcn")
     ap.add_argument("--dtype", choices=["float32", "bfloat16"],
                     default="float32")
+    ap.add_argument("--layout", choices=["coo", "hybrid"], default="coo",
+                    help="hybrid: GAT only, on kernels K4-K6")
     args = ap.parse_args(argv)
+    if args.layout == "hybrid" and args.model != "gat":
+        ap.error("--layout hybrid profiles GAT only")
     device = resolve_device("cuda")
     cdtype = torch.bfloat16 if args.dtype == "bfloat16" else None
-    data = load_cora(seed=0, layout="coo", device=device)
-    f = int(data.features.shape[1])
+    data = load_cora(seed=0, layout=args.layout, device=device,
+                     model=args.model, tile_dtype=cdtype or torch.float32)
+    f =int(data.features.shape[1])
     if args.model == "gcn":
         model = GCN(f, hidden=128, num_classes=data.num_classes, dtype=cdtype)
         opt = make_optimizer("adamw", 2e-3, weight_decay=5e-4)
@@ -78,7 +85,8 @@ def main(argv=None) -> dict:
         by_name[e.name] += e.time_range.elapsed_us()
     device_ms = sum(by_name.values()) / 1e3 / EPOCHS
     result = {
-        "model": args.model, "dtype": args.dtype, "epochs": EPOCHS,
+        "model": args.model, "dtype": args.dtype, "layout": args.layout,
+        "epochs": EPOCHS,
         "card": torch.cuda.get_device_name(0),
         "wall_ms_per_epoch": wall_ms,
         "traced_wall_ms_per_epoch": traced_ms,

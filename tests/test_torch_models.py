@@ -132,3 +132,23 @@ def test_train_mode_dropout_uses_generator(small):
 
     torch.testing.assert_close(run(3), run(3), rtol=0, atol=0)
     assert not torch.equal(run(3), run(4))
+
+
+ATTENTION_VECTORS = ("attn1.attn_src", "attn1.attn_dst", "attn_out.attn_src",
+                     "attn_out.attn_dst")
+
+
+def test_bf16_attention_vector_grads_track_float32(small):
+    """The COO GAT's bfloat16 gradient of each attention vector, against
+    that package's own float32 gradient and relative to the tensor's own
+    largest entry: the port's error is at most 1.5x the JAX package's.
+    These gradients are sums that cancel, so rounding the per-edge products
+    of the attention backward to bfloat16 shows here, where the model-wide
+    scale of test_logits_and_grads_match_flax_bf16 cannot see it."""
+    (_, _, j16), (_, _, t16) = _run_both("gat", jnp.bfloat16, small)
+    (_, _, j32), (_, _, t32) = _run_both("gat", None, small)
+    for name in ATTENTION_VECTORS:
+        def rel(g16, g32):
+            return float((g16 - g32).abs().max() / g32.abs().max())
+        t_err, j_err = rel(t16[name], t32[name]), rel(j16[name], j32[name])
+        assert t_err <= 1.5 * j_err, (name, t_err, j_err)

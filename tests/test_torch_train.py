@@ -203,9 +203,11 @@ def test_cli_default_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--model", "gat"],                        # auto resolves to hybrid
+    # GAT trains on the hybrid layout (K4-K6); GCN there needs K3
+    ["--model", "gcn", "--layout", "hybrid", "--dtype", "bfloat16"],
     ["--model", "gcn", "--layout", "hybrid"],
 ])
 def test_cli_hybrid_layout_not_ported(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+    with pytest.raises(NotImplementedError,
+                       match="K3.*ROADMAP.md queue 1 item 8"):
         main(argv + ["--device", "cpu", "--quiet", "--epochs", "1"])
