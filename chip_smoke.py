@@ -16,18 +16,30 @@ Phases, each printing one JSON line:
                K6 on the Cora GAT hybrid (8x8 and 1x7), a 2M-edge community
                graph (8x128) and a hub graph whose densest row block holds
                more than 8 remainder chunks and 6 tiles; float32 and
-               bfloat16, with and without attention dropout;
-  4. path    — GCN, GAT-COO and GAT on the hybrid Cora graph (dropout off,
+               bfloat16, with and without attention dropout; K3 on the
+               GCN Cora hybrid (F 128 and 7), the Pubmed SAGE hybrid (F 500,
+               128 and 1) and the 2M-edge community graph's tiles and
+               transpose tiles (F 128), float32 and bfloat16; K7 on the
+               Pubmed hybrid (C 500 and 128) and the community graph (128);
+  4. path    — GCN, GAT-COO, GAT on the hybrid Cora graph (dropout off,
                then attention dropout with the same masks on both sides),
-               kernels against plain versions end to end: logits and
-               gradients on the card agree with the same model on the CPU;
+               GCN on the Cora hybrid and GraphSAGE mean and max on the
+               Pubmed hybrid, kernels against plain versions end to end:
+               logits and gradients on the card agree with the same model
+               on the CPU;
   5. gcn     — the main path: ``--model gcn`` through the CLI entry point
                (auto layout -> COO), 200 epochs; K1 must have launched;
   6. gat     — ``--model gat --layout coo``, 50 epochs; K1 and K2 must have
                launched;
   7. gat_hybrid — ``--model gat`` (auto layout -> hybrid), 50 epochs in
                float32, then in bfloat16; exact K4/K5/K6 launch counts and
-               no K1 or K2 launch.
+               no K1 or K2 launch;
+  8. gcn_hybrid — ``--model gcn --layout hybrid``, 200 epochs in float32,
+               then in bfloat16; exact K3 and K1 launch counts;
+  9. graphsage_hybrid(_max) — ``--model graphsage --layout hybrid``, 100
+               epochs with the mean aggregator (K3 and K1, no K7 or K2),
+               then with ``--set aggregator=max`` (K7 and K2, no K3 or K1).
+Every CLI run must reach test_acc >= 0.80 with exact launch counts.
 Then a ``kernels`` summary line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without the last line.
 """
@@ -47,12 +59,14 @@ import torch
 from graphneuralnetwork_tpu_torch.cli import main as cli_main
 from graphneuralnetwork_tpu_torch.core.bcsr import (COL_BLOCK, ROW_BLOCK,
                                                     build_hybrid)
-from graphneuralnetwork_tpu_torch.data import load_cora
-from graphneuralnetwork_tpu_torch.nn import GAT, GCN
+from graphneuralnetwork_tpu_torch.data import load_cora, load_pubmed_fullbatch
+from graphneuralnetwork_tpu_torch.nn import GAT, GCN, GraphSAGE
 from graphneuralnetwork_tpu_torch.ops import bcsr_attention
 from graphneuralnetwork_tpu_torch.ops.cuda import attend_bwd_kernel as k56
 from graphneuralnetwork_tpu_torch.ops.cuda import attend_online_kernel as k4
+from graphneuralnetwork_tpu_torch.ops.cuda import bcsr_spmm_kernel as k3
 from graphneuralnetwork_tpu_torch.ops.cuda import build
+from graphneuralnetwork_tpu_torch.ops.cuda import neighbor_max_kernel as k7
 from graphneuralnetwork_tpu_torch.ops.cuda import segment_max_kernel as k2
 from graphneuralnetwork_tpu_torch.ops.cuda import spmm_kernel as k1
 from graphneuralnetwork_tpu_torch.train.metrics import (
@@ -63,14 +77,14 @@ from graphneuralnetwork_tpu_torch.train.metrics import (
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 #: Dense bf16 tensor-core rate (data sheet): the unit that could do the
-#: attend kernels' bf16 products.
+#: attend kernels' and K3's bf16 products.
 PEAK_BF16_OPS_PER_S = 989e12
 #: Special-function unit (exp) rate: 16 results per clock per SM (CUDA
 #: programming guide, compute capability 9.0) x 132 SMs x 1.98 GHz, the
 #: boost clock at which 132 SMs reach the 67 TFLOP/s float32 peak.
 PEAK_EXP_PER_S = 16 * 132 * 1.98e9
 DEVICE = "cuda"
-GCN_EPOCHS, GAT_EPOCHS = 200, 50
+GCN_EPOCHS, GAT_EPOCHS, SAGE_EPOCHS = 200, 50, 100
 LARGE_NODES, LARGE_EDGES = 65536, 2 ** 21
 #: The attend kernels' large shape: a community graph without shuffle
 #: (``bench.py``'s 2M-edge GAT shape, its locality given, not recovered).
@@ -81,8 +95,9 @@ GAT_DROPOUT = 0.6
 #: with S the row's sum of |values|. Both sum in float32 in different
 #: orders (the plain version with atomics), which costs up to ~n * 2^-24 * S
 #: for an n-edge row; atol = 1e-5 covers rows of ~100 edges at that worst
-#: case. bf16: both round a float32 sum once, so they may also differ by
-#: one bf16 step (2^-7 of the value). Segment max is exact.
+#: case, and K3's rows, which sum the nonzero slots of at most 6 tiles.
+#: bf16: both round a float32 sum once, so they may also differ by one bf16
+#: step (2^-7 of the value). Segment max and K7's neighbour max are exact.
 TOL = {"float32": (0.0, 1e-5), "bfloat16": (2.0 ** -7, 1e-5),
        "max": (0.0, 0.0)}
 #: K4-K6 vs their plain versions: |kernel - plain| <= rtol * |plain| +
@@ -418,7 +433,15 @@ def _attend_case(label, hg, heads, feat, dtype, dropping, gen, plain_reps):
     return cases
 
 
-def phase_attend_kernels(cora_hybrid) -> list[dict]:
+def _large_hybrid():
+    """The attend and tile kernels' large shape: ``ATTEND_LARGE``'s
+    community graph as a directed hybrid (its own transpose tiles)."""
+    big = ATTEND_LARGE
+    return build_hybrid(*_community_graph(big["n"], big["e"], big["comm"]),
+                        big["n"], min_edges_per_tile=192, device=DEVICE)
+
+
+def phase_attend_kernels(cora_hybrid, large) -> list[dict]:
     """K4-K6 at the GAT path's Cora shapes, a large community graph and a
     hub graph; float32 and bfloat16 (x and tiles), dropout off and on."""
     t0 = time.perf_counter()
@@ -430,8 +453,6 @@ def phase_attend_kernels(cora_hybrid) -> list[dict]:
         raise AssertionError("hub graph: row block 0 holds "
                              f"{int(hub.rem_fine_cnt[0])} remainder chunks "
                              f"and {int(hub.bcsr.tile_cnt[0])} tiles")
-    large = build_hybrid(*_community_graph(big["n"], big["e"], big["comm"]),
-                         big["n"], min_edges_per_tile=192, device=DEVICE)
     emit({"phase": "kernels", "graphs": {
         name: dict(nodes=g.n_nodes, tiles=g.bcsr.n_tiles,
                    tiled_edges=g.bcsr.n_edges, remainder_edges=g.rem.n_edges,
@@ -454,6 +475,122 @@ def phase_attend_kernels(cora_hybrid) -> list[dict]:
                 cases += _attend_case(label, hg, heads, feat, dtype,
                                       dropping, gen, plain_reps)
     emit({"phase": "kernels", "attend_seconds": time.perf_counter() - t0,
+          "cases": len(cases)})
+    return cases
+
+
+def _k3_library(bg, x, ref):
+    """One PyTorch call for K3's function: ``torch.sparse.mm`` on a BSR
+    tensor (blocksize 128) built once from the tiles, with ``x`` padded to
+    ``n_node_pad`` rows. Returns the call and its max abs error against
+    the plain version."""
+    n_pad = bg.n_node_pad
+    xp = torch.zeros(n_pad, x.shape[1], dtype=x.dtype, device=DEVICE)
+    xp[:bg.n_nodes] = x
+    crow = torch.cat([bg.tile_cnt.new_zeros(1), bg.tile_cnt.cumsum(0)])
+    a = torch.sparse_bsr_tensor(crow.long(), bg.col_ids.long(),
+                                bg.tiles.to(x.dtype), size=(n_pad, n_pad))
+
+    def call():
+        return torch.sparse.mm(a, xp)
+    out = call()[:bg.n_nodes]
+    return call, float((out.float() - ref.float()).abs().max())
+
+
+def _k3_case(label, bg, f, dtype, gen, plain_reps):
+    """K3 on random ``x`` [N, f] in ``dtype`` against its plain version,
+    then timed. The bound counts the tile store, the ids and spans, ``x``
+    and ``out`` once, and 2 flops per nonzero tile slot and column: the
+    work this graph needs (the dense-tile count, 2 * T * 128 * 128 * F,
+    is reported beside it)."""
+    dname = str(dtype).replace("torch.", "")
+    x = torch.randn(bg.n_nodes, f, device=DEVICE, generator=gen).to(dtype)
+    out = k3.bcsr_spmm(bg, x)
+    ref = k3.bcsr_spmm_plain(bg, x)
+    abs_bg = dataclasses.replace(bg, tiles=bg.tiles.to(dtype).float().abs())
+    abs_sum = k3.bcsr_spmm_plain(abs_bg, x.float().abs())
+    torch.cuda.synchronize()
+    err, rtol, atol = _check(f"K3 {label} {dname} F={f}", out, ref, dname,
+                             abs_sum)
+    nnz = int(torch.count_nonzero(bg.tiles))
+    n_bytes = _nbytes(bg.tiles, bg.col_ids, bg.tile_off, bg.tile_cnt, x, out)
+    peak = (PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16
+            else PEAK_F32_OPS_PER_S)
+    b_ms, b_by = bound(n_bytes, 2 * nnz * f, peak)
+    dense_ms, dense_by = bound(
+        n_bytes, 2 * bg.n_tiles * ROW_BLOCK * COL_BLOCK * f, peak)
+    lib, lib_err = _k3_library(bg, x, ref)
+    return dict(
+        kernel="K3", graph=label, dtype=dname, shape=[bg.n_nodes, f],
+        tiles=bg.n_tiles, tile_dtype=str(bg.tiles.dtype).replace(
+            "torch.", ""), nonzero_slots=nnz, max_abs_err=err, rtol=rtol,
+        atol=atol, kernel_ms=time_ms(lambda: k3.bcsr_spmm(bg, x)),
+        plain_ms=time_ms(lambda: k3.bcsr_spmm_plain(bg, x), *plain_reps),
+        library_ms=time_ms(lib),
+        library="torch.sparse.mm (BSR, blocksize 128)",
+        library_max_abs_err=lib_err, bound_ms=b_ms, bound_by=b_by,
+        dense_tile_bound_ms=dense_ms, dense_tile_bound_by=dense_by,
+        bytes=n_bytes, flops=2 * nnz * f)
+
+
+def _k7_case(label, bg, c, gen, plain_reps):
+    """K7 on random float32 ``v`` [N, c] against its plain version (exact),
+    then timed. The bound counts the tile store, the ids and spans, ``v``
+    and ``out`` once, and one comparison per nonzero tile slot and column
+    (the dense-tile count, T * 128 * 128 * C, is reported beside it)."""
+    v = torch.randn(bg.n_nodes, c, device=DEVICE, generator=gen)
+    out = k7.neighbor_max(bg, v)
+    ref = k7.neighbor_max_plain(bg, v)
+    torch.cuda.synchronize()
+    err, rtol, atol = _check(f"K7 {label} C={c}", out, ref, "max")
+    nnz = int(torch.count_nonzero(bg.tiles))
+    n_bytes = _nbytes(bg.tiles, bg.col_ids, bg.tile_off, bg.tile_cnt, v, out)
+    b_ms, b_by = bound(n_bytes, nnz * c)
+    dense_ms, dense_by = bound(n_bytes,
+                               bg.n_tiles * ROW_BLOCK * COL_BLOCK * c)
+    return dict(
+        kernel="K7", graph=label, dtype="float32", shape=[bg.n_nodes, c],
+        tiles=bg.n_tiles, nonzero_slots=nnz, max_abs_err=err, rtol=rtol,
+        atol=atol, kernel_ms=time_ms(lambda: k7.neighbor_max(bg, v)),
+        plain_ms=time_ms(lambda: k7.neighbor_max_plain(bg, v), *plain_reps),
+        library_ms=None,
+        library="none: no single PyTorch call computes a masked block max",
+        bound_ms=b_ms, bound_by=b_by, dense_tile_bound_ms=dense_ms,
+        dense_tile_bound_by=dense_by, bytes=n_bytes, flops=nnz * c)
+
+
+def phase_tile_kernels(cora_gcn_hg, pubmed_hg, large) -> list[dict]:
+    """K3 at GCN's Cora hybrid widths (128, 7) and SAGE's Pubmed widths
+    (500, 128, 1), and on the large community graph's tiles and transpose
+    tiles at 128, with float32 and bfloat16 ``x`` (the large graph's tiles
+    in ``x``'s type, the path graphs' in float32, as the loaders build
+    them); K7 at SAGE's Pubmed widths (500, 128) and on the large tiles."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    emit({"phase": "kernels", "tile_graphs": {
+        name: dict(nodes=bg.n_nodes, tiles=bg.n_tiles,
+                   tiled_edges=bg.n_edges, max_tiles=bg.max_tiles)
+        for name, bg in (("cora_gcn", cora_gcn_hg.bcsr),
+                         ("pubmed", pubmed_hg.bcsr), ("large", large.bcsr),
+                         ("large_t", large.bcsr_t))}})
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        big = _with_tile_dtype(large, dtype)
+        shapes = ([("cora_gcn", cora_gcn_hg.bcsr, f, (7, 20))
+                   for f in (128, 7)]
+                  + [("pubmed", pubmed_hg.bcsr, f, (7, 20))
+                     for f in (500, 128, 1)]
+                  + [("large", big.bcsr, 128, (3, 2)),
+                     ("large_t", big.bcsr_t, 128, (3, 2))])
+        for label, bg, f, plain_reps in shapes:
+            cases.append(_k3_case(label, bg, f, dtype, gen, plain_reps))
+            emit({"phase": "kernels", **cases[-1]})
+    for label, bg, c, plain_reps in (("pubmed", pubmed_hg.bcsr, 500, (7, 20)),
+                                     ("pubmed", pubmed_hg.bcsr, 128, (7, 20)),
+                                     ("large", large.bcsr, 128, (3, 2))):
+        cases.append(_k7_case(label, bg, c, gen, plain_reps))
+        emit({"phase": "kernels", **cases[-1]})
+    emit({"phase": "kernels", "tile_seconds": time.perf_counter() - t0,
           "cases": len(cases)})
     return cases
 
@@ -506,11 +643,13 @@ def _card_vs_cpu(make, cpu_graph, dev_graph, data, dropout_ops=None):
     return err, gerr
 
 
-def phase_path(cora, cora_h, cora_hg) -> None:
-    """The models with the kernels (card) against the plain versions (CPU)
-    on the Cora graph, same weights, float32: GCN and GAT on COO, GAT on
-    the hybrid layout without and with attention dropout (the same masks,
-    drawn on the CPU, on both sides)."""
+def phase_path(cora, cora_h, cora_hg, cora_g, pubmed) -> None:
+    """The models with the kernels (card) against the plain versions (CPU),
+    same weights, float32: GCN and GAT on the Cora COO graph, GAT on the
+    hybrid layout without and with attention dropout (the same masks,
+    drawn on the CPU, on both sides), GCN on the Cora hybrid (``cora_g``,
+    K3 + K1) and GraphSAGE mean (K3 + K1) and max (K7 + K2) on the Pubmed
+    hybrid."""
     t0 = time.perf_counter()
     n_feats, n_cls = cora.features.shape[1], cora.num_classes
 
@@ -527,7 +666,15 @@ def phase_path(cora, cora_h, cora_hg) -> None:
         "gat": (gat, cora.graph, cora, None),
         "gat_hybrid": (gat, cora_hg, cora_h, None),
         "gat_hybrid_dropout": (gat, cora_hg, cora_h, masks),
+        "gcn_hybrid": (lambda: GCN(n_feats, hidden=128, num_classes=n_cls),
+                       cora_g.graph, cora_g, None),
     }
+    for agg in ("mean", "max"):
+        runs[f"graphsage_hybrid_{agg}"] = (
+            lambda agg=agg: GraphSAGE(
+                pubmed.features.shape[1], hidden_dims=(128,),
+                num_classes=pubmed.num_classes, aggregator=agg),
+            pubmed.graph, pubmed, None)
     report = {}
     for name, (make, graph, data, ops) in runs.items():
         err, gerr = _card_vs_cpu(make, graph.to("cpu"), graph, data, ops)
@@ -541,8 +688,9 @@ def phase_path(cora, cora_h, cora_hg) -> None:
 
 #: The launch counter of each kernel's wrapper.
 COUNTERS = {"K1": k1.segment_sum, "K2": k2.segment_max,
-            "K4": k4.attend_online, "K5": k56.attend_bwd_a,
-            "K6": k56.attend_bwd_b}
+            "K3": k3.bcsr_spmm, "K4": k4.attend_online,
+            "K5": k56.attend_bwd_a, "K6": k56.attend_bwd_b,
+            "K7": k7.neighbor_max}
 
 
 def _drive(phase, argv, expect):
@@ -572,8 +720,8 @@ def _drive(phase, argv, expect):
     return launches
 
 
-def _cora_width(width):
-    return lambda c: c["graph"] == "cora" and c["shape"][1] == width
+def _width(graph, width):
+    return lambda c: c["graph"] == graph and c["shape"][1] == width
 
 
 def _cora_gat_train(c):
@@ -583,16 +731,21 @@ def _cora_gat_train(c):
 
 
 #: name, source, TPU kernel replaced, and which float32 case the summary
-#: times (GCN's first layer for K1; GAT's 8 heads for K2; the first GAT
-#: layer of a training step for K4-K6)
+#: times (GCN's first layer for K1 and for K3 on the Cora hybrid; GAT's 8
+#: heads for K2; the first GAT layer of a training step for K4-K6;
+#: SAGE's first layer on the Pubmed hybrid for K7)
 KERNELS = {
     "K1": ("segment_sum", "graphneuralnetwork_tpu_torch/csrc/spmm_kernel.cu",
            "graphneuralnetwork_tpu/ops/pallas/spmm_kernel.py:94",
-           _cora_width(128)),
+           _width("cora", 128)),
     "K2": ("segment_max",
            "graphneuralnetwork_tpu_torch/csrc/segment_max_kernel.cu",
            "graphneuralnetwork_tpu/ops/pallas/segment_max_kernel.py:28",
-           _cora_width(8)),
+           _width("cora", 8)),
+    "K3": ("bcsr_spmm",
+           "graphneuralnetwork_tpu_torch/csrc/bcsr_spmm_kernel.cu",
+           "graphneuralnetwork_tpu/ops/bcsr_spmm.py:63",
+           _width("cora_gcn", 128)),
     "K4": ("attend_online",
            "graphneuralnetwork_tpu_torch/csrc/attend_online_kernel.cu",
            "graphneuralnetwork_tpu/ops/pallas/attend_online_kernel.py:198",
@@ -605,6 +758,10 @@ KERNELS = {
            "graphneuralnetwork_tpu_torch/csrc/attend_bwd_kernel.cu",
            "graphneuralnetwork_tpu/ops/pallas/attend_bwd_kernel.py:251",
            _cora_gat_train),
+    "K7": ("neighbor_max",
+           "graphneuralnetwork_tpu_torch/csrc/neighbor_max_kernel.cu",
+           "graphneuralnetwork_tpu/ops/bcsr_attention.py:131",
+           _width("pubmed", 500)),
 }
 
 
@@ -621,7 +778,7 @@ def summary(cases, launches) -> dict:
             "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"],
-            "timed_case": f"float32 {c['shape']} on cora"
+            "timed_case": f"float32 {c['shape']} on {c['graph']}"
                           + (" with dropout" if c.get("dropout") else ""),
         })
     return {"kernels": rows}
@@ -638,8 +795,14 @@ def main() -> None:
     cora_hg = cora_h.graph
     if not hasattr(cora_hg, "bcsr"):
         raise AssertionError("GAT on Cora did not choose the hybrid layout")
-    cases = phase_kernels(cora) + phase_attend_kernels(cora_hg)
-    phase_path(cora, cora_h, cora_hg)
+    # GCN's and SAGE's hybrids as the CLI loads them
+    cora_g = load_cora(seed=0, layout="hybrid", device=DEVICE)
+    pubmed = load_pubmed_fullbatch(seed=0, layout="hybrid", device=DEVICE)
+    large = _large_hybrid()
+    cases = (phase_kernels(cora) + phase_attend_kernels(cora_hg, large)
+             + phase_tile_kernels(cora_g.graph, pubmed.graph, large))
+    del large
+    phase_path(cora, cora_h, cora_hg, cora_g, pubmed)
     runs = [
         _drive("gcn", ["--model", "gcn", "--epochs", str(GCN_EPOCHS),
                        "--device", DEVICE, "--quiet"], {"K1": (4, 2)}),
@@ -655,6 +818,26 @@ def main() -> None:
             "gat_hybrid" + ("_bf16" if dtype == "bfloat16" else ""),
             ["--model", "gat", "--epochs", str(GAT_EPOCHS), "--dtype", dtype,
              "--device", DEVICE, "--quiet"], hybrid))
+    # GCN hybrid per epoch: 2 layers x (train + val forward) K3 on the
+    # tiles and K1 on the remainder, 2 K3 in the backward (the transpose
+    # tiles for d support of both layers; the remainder's is a gather)
+    for dtype in ("float32", "bfloat16"):
+        runs.append(_drive(
+            "gcn_hybrid" + ("_bf16" if dtype == "bfloat16" else ""),
+            ["--model", "gcn", "--layout", "hybrid", "--epochs",
+             str(GCN_EPOCHS), "--dtype", dtype, "--device", DEVICE,
+             "--quiet"], {"K3": (6, 2), "K1": (4, 2)}))
+    # SAGE mean per forward: 2 layers x (counts + sum) K3 and K1; the
+    # backward needs d input of sage_out only (sage0's input is the
+    # features): 1 K3. Max per forward: 2 layers x (K7 + K2), backward in
+    # plain PyTorch.
+    sage = ["--model", "graphsage", "--layout", "hybrid", "--epochs",
+            str(SAGE_EPOCHS), "--device", DEVICE, "--quiet"]
+    runs.append(_drive("graphsage_hybrid", sage,
+                       {"K3": (9, 4), "K1": (8, 4)}))
+    runs.append(_drive("graphsage_hybrid_max",
+                       sage + ["--set", "aggregator=max"],
+                       {"K7": (4, 2), "K2": (4, 2)}))
     emit(summary(cases, {k: sum(run[k] for run in runs) for k in COUNTERS}))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,7 @@ JAX builder. Every array equals the JAX one.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -72,6 +73,15 @@ class BCSRGraph:
     @property
     def device(self) -> torch.device:
         return self.tiles.device
+
+    @functools.cached_property
+    def slot_edges(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(rows, cols), int64: the nonzero tile slots as an edge list
+        ``cols -> rows``. Built at first use (``torch.nonzero``, a host
+        sync) and kept with the graph."""
+        t, i, j = torch.nonzero(self.tiles, as_tuple=True)
+        return (self.row_ids[t].long() * ROW_BLOCK + i,
+                self.col_ids[t].long() * COL_BLOCK + j)
 
     def to(self, device) -> "BCSRGraph":
         return _tensors_to(self, device)

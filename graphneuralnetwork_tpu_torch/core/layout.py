@@ -50,8 +50,11 @@ def tiled_edge_fraction(senders, receivers, n_nodes: int) -> float:
 
 
 def probe_layout(senders: np.ndarray, receivers: np.ndarray,
-                 n_nodes: int) -> Tuple[float, float, np.ndarray]:
-    """Cluster the nodes and model both layouts' traffic per SpMM.
+                 n_nodes: int, *,
+                 min_edges_per_tile: int = MIN_EDGES_PER_TILE
+                 ) -> Tuple[float, float, np.ndarray]:
+    """Cluster the nodes and model both layouts' traffic per SpMM, with
+    tiles dense from ``min_edges_per_tile`` edges on.
 
     Returns ``(tiled_fraction, byte_ratio, perm)``: the edge mass in dense
     tiles, the modeled hybrid/COO bytes ratio (1.0 when nothing tiles) and
@@ -66,13 +69,13 @@ def probe_layout(senders: np.ndarray, receivers: np.ndarray,
         return 0.0, 1.0, perm
     _, inv, cnt = np.unique(_tile_keys(s2, r2, n_nodes),
                             return_inverse=True, return_counts=True)
-    dense = cnt >= MIN_EDGES_PER_TILE
+    dense = cnt >= min_edges_per_tile
     t_dense = int(dense.sum())
     e_rem = int(cnt[~dense].sum())
     bytes_coo = e * PROBE_FEAT * 4
     bytes_hyb = (t_dense * (ROW_BLOCK * COL_BLOCK + COL_BLOCK * PROBE_FEAT)
                  * 4 + e_rem * PROBE_FEAT * 4)
-    frac = float((cnt[inv] >= MIN_EDGES_PER_TILE).mean())
+    frac = float(dense[inv].mean())
     return frac, bytes_hyb / bytes_coo, perm
 
 
@@ -81,13 +84,15 @@ def choose_layout(
     receivers: np.ndarray,
     n_nodes: int,
     *,
+    min_edges_per_tile: int = MIN_EDGES_PER_TILE,
     objective: str = "spmm",
     verbose: bool = False,
     tag: str = "graph",
 ) -> Tuple[str, float, np.ndarray]:
     """Decide ``"hybrid"`` vs ``"coo"``; returns ``(layout, byte_ratio,
     perm)`` and logs the decision when ``verbose``."""
-    frac, ratio, perm = probe_layout(senders, receivers, n_nodes)
+    frac, ratio, perm = probe_layout(senders, receivers, n_nodes,
+                                     min_edges_per_tile=min_edges_per_tile)
     if objective == "attention":
         layout = ("hybrid" if frac >= MIN_ATTENTION_TILED_FRACTION
                   else "coo")

@@ -4,3 +4,8 @@ from .planetoid import (  # noqa: F401
     load_cora,
     synthetic_citation_graph,
 )
+from .pubmed import (  # noqa: F401
+    SampledNodeData,
+    load_pubmed,
+    load_pubmed_fullbatch,
+)

@@ -1,2 +1,2 @@
-from .conv import GATConv, GCNConv  # noqa: F401
-from .models import GAT, GCN  # noqa: F401
+from .conv import GATConv, GCNConv, SAGEConv  # noqa: F401
+from .models import GAT, GCN, GraphSAGE  # noqa: F401

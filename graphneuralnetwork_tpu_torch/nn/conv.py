@@ -1,9 +1,10 @@
 """Message-passing convolution layers (torch.nn).
 
-Port of ``graphneuralnetwork_tpu/nn/conv.py``: ``GCNConv`` (COO layout)
-and ``GATConv`` (COO and hybrid layouts). Parameter names and shapes follow
-the flax modules (``linear``, ``bias``, ``attn_src``/``attn_dst`` [H, F]);
-a flax Dense kernel [in, out] is the transpose of ``linear.weight``
+Port of ``graphneuralnetwork_tpu/nn/conv.py``: ``GCNConv``, ``GATConv``
+and ``SAGEConv``, each on the COO and the hybrid layout. Parameter names
+and shapes follow the flax modules (``linear``, ``bias``,
+``attn_src``/``attn_dst`` [H, F], SAGE's ``neighbor`` and ``self``); a flax
+Dense kernel [in, out] is the transpose of a ``Linear.weight``
 (``params.py``).
 
 ``dtype`` is the compute dtype (mixed precision): parameters stay float32,
@@ -14,7 +15,7 @@ kernel accumulates in float32), and GAT's attention logits are float32.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -22,8 +23,9 @@ from torch.nn import functional as F
 
 from ..core.bcsr import HybridGraph
 from ..core.graph import Graph
-from ..ops import edge_softmax
-from ..ops.bcsr_attention import gat_tiled_attend
+from ..ops import (aggregate_edges, edge_softmax, segment_max,
+                   segment_mean)
+from ..ops.bcsr_attention import gat_tiled_attend, hybrid_segment_max
 from ..ops.spmm import spmm, spmm_weighted
 
 
@@ -33,6 +35,17 @@ def glorot_uniform_(w: torch.Tensor, fan_in: int, fan_out: int,
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     with torch.no_grad():
         return w.uniform_(-limit, limit, generator=generator)
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator] = None):
+    """flax's ``lecun_normal`` (the ``nn.Dense`` default): a normal of
+    variance ``1 / fan_in`` truncated at two standard deviations, its scale
+    corrected for the truncation as ``jax.nn.initializers`` does."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                     generator=generator)
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -45,14 +58,6 @@ def dropout(x: torch.Tensor, rate: float,
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
-
-
-def _hybrid_not_ported(graph) -> None:
-    if not isinstance(graph, Graph):
-        raise NotImplementedError(
-            f"GCNConv on a {type(graph).__name__} needs the dense-tile SpMM "
-            "kernel K3, which is not ported yet (ROADMAP.md queue 1 item 8); "
-            "use --layout coo for GCN")
 
 
 class GCNConv(nn.Module):
@@ -70,8 +75,8 @@ class GCNConv(nn.Module):
         glorot_uniform_(self.linear.weight, in_f, out_f, generator)
         nn.init.zeros_(self.bias)
 
-    def forward(self, graph: Graph, x: torch.Tensor) -> torch.Tensor:
-        _hybrid_not_ported(graph)
+    def forward(self, graph: Graph | HybridGraph,
+                x: torch.Tensor) -> torch.Tensor:
         if self.dtype is not None:
             x = x.to(self.dtype)
         support = F.linear(x, self.linear.weight.to(x.dtype))
@@ -146,3 +151,72 @@ class GATConv(nn.Module):
         if self.concat_heads:
             return out.reshape(n, self.num_heads * self.features)
         return out.mean(dim=1)
+
+
+class SAGEConv(nn.Module):
+    """GraphSAGE convolution (full-graph form): aggregate the in-neighbours
+    (``mean``, ``sum`` or ``max``), then ``neighbor(agg) + self(x)``.
+
+    On a ``HybridGraph`` ``sum`` and ``mean`` ride ``spmm`` (K3 and K1;
+    ``mean`` divides by ``spmm(graph, ones)``, at least 1) and ``max``
+    ``hybrid_segment_max`` (K7 and K2). On a ``Graph`` they are the
+    unweighted segment mean and max over the real edges and the weighted
+    sum of ``aggregate_edges``.
+    """
+
+    def __init__(self, in_features: int, features: int,
+                 aggregator: str = "mean", use_bias: bool = False,
+                 dtype: Optional[torch.dtype] = None,
+                 activation: Optional[Callable] = None):
+        super().__init__()
+        if aggregator not in ("mean", "sum", "max"):
+            raise ValueError(f"unknown aggregator {aggregator!r}")
+        self.aggregator = aggregator
+        self.dtype = dtype
+        self.activation = activation
+        # the flax scope names: ``sage0/neighbor/kernel`` maps to
+        # ``sage0.neighbor.weight``
+        self.neighbor = nn.Linear(in_features, features, bias=use_bias)
+        self.self = nn.Linear(in_features, features, bias=use_bias)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        for lin in (self.neighbor, self.self):
+            lecun_normal_(lin.weight, lin.in_features, generator)
+            if lin.bias is not None:
+                nn.init.zeros_(lin.bias)
+
+    def _aggregate(self, graph: Graph | HybridGraph,
+                   x: torch.Tensor) -> torch.Tensor:
+        if hasattr(graph, "bcsr"):
+            if self.aggregator == "sum":
+                return spmm(graph, x)
+            if self.aggregator == "mean":
+                ones = torch.ones(x.shape[0], 1, dtype=x.dtype,
+                                  device=x.device)
+                counts = torch.clamp_min(spmm(graph, ones), 1.0)
+                return spmm(graph, x) / counts
+            return hybrid_segment_max(graph, x)
+        msgs = x[graph.senders]
+        if self.aggregator == "mean":
+            return segment_mean(msgs, graph.receivers, graph.n_nodes,
+                                mask=graph.edge_mask)
+        if self.aggregator == "sum":
+            w = graph.edge_weight[:, None].to(x.dtype)
+            return aggregate_edges(graph, msgs * w)
+        return segment_max(msgs, graph.receivers, graph.n_nodes,
+                           mask=graph.edge_mask)
+
+    @staticmethod
+    def _dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        bias = None if lin.bias is None else lin.bias.to(x.dtype)
+        return F.linear(x, lin.weight.to(x.dtype), bias)
+
+    def forward(self, graph: Graph | HybridGraph,
+                x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        out = (self._dense(self.neighbor, self._aggregate(graph, x))
+               + self._dense(self.self, x))
+        if self.activation is not None:
+            out = self.activation(out)
+        return out

@@ -1,7 +1,8 @@
 """Node-classification models assembled from the conv layers.
 
-Port of ``GCN`` and ``GAT`` of ``graphneuralnetwork_tpu/nn/models.py``,
-with the same layer names (``conv1``/``conv2``, ``attn1``/``attn_out``).
+Port of ``GCN``, ``GAT`` and ``GraphSAGE`` of
+``graphneuralnetwork_tpu/nn/models.py``, with the same layer names
+(``conv1``/``conv2``, ``attn1``/``attn_out``, ``sage0``.../``sage_out``).
 Dropout is active in ``train()`` mode and draws from the ``generator``
 passed to ``forward``. ``dtype=torch.bfloat16`` runs the layers in mixed
 precision; the logits come back in float32.
@@ -9,14 +10,15 @@ precision; the logits come back in float32.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..core.bcsr import HybridGraph
 from ..core.graph import Graph
-from .conv import GATConv, GCNConv, dropout
+from .conv import GATConv, GCNConv, SAGEConv, dropout
 
 
 class GCN(nn.Module):
@@ -68,3 +70,33 @@ class GAT(nn.Module):
         if self.training:
             h = dropout(h, self.dropout, generator)
         return self.attn_out(graph, h, generator).float()
+
+
+class GraphSAGE(nn.Module):
+    """Full-graph GraphSAGE: ``SAGEConv`` layers of ``hidden_dims`` with
+    ReLU (``sage0``, ``sage1``, ...), then ``sage_out`` without one. No
+    dropout; ``generator`` is accepted for the training loop's call."""
+
+    def __init__(self, in_features: int,
+                 hidden_dims: Sequence[int] = (128,), num_classes: int = 3,
+                 aggregator: str = "mean",
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        dims = [in_features, *hidden_dims]
+        for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
+            self.add_module(f"sage{i}", SAGEConv(
+                d_in, d_out, aggregator=aggregator, dtype=dtype,
+                activation=F.relu))
+        self.sage_out = SAGEConv(dims[-1], num_classes,
+                                 aggregator=aggregator, dtype=dtype)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        for layer in self.children():
+            layer.reset_parameters(generator)
+
+    def forward(self, graph: Graph | HybridGraph, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = x
+        for layer in self.children():
+            h = layer(graph, h)
+        return h.float()

@@ -1,6 +1,10 @@
-"""Tiled graph attention: GAT's softmax aggregation on the hybrid layout.
+"""Tiled graph attention and neighbour max on the hybrid layout.
 
-Port of the GAT path of ``graphneuralnetwork_tpu/ops/bcsr_attention.py``.
+Port of ``graphneuralnetwork_tpu/ops/bcsr_attention.py``: GAT's softmax
+aggregation (below) and SAGE's max-pool (``hybrid_segment_max``: K7 on the
+tiles, K2 on the remainder, a plain PyTorch backward that routes each
+cotangent to the neighbours attaining the max).
+
 ``gat_tiled_attend(hg, x, f_src, f_dst)`` is exactly
 ``spmm_weighted(g, edge_softmax(g, scores), x)`` on the equivalent COO
 graph, with ``scores = LeakyReLU(f_src[s] + f_dst[r])`` (duplicate edges
@@ -29,9 +33,13 @@ from typing import Optional
 
 import torch
 
-from ..core.bcsr import COL_BLOCK, ROW_BLOCK, HybridGraph
+from ..core.bcsr import COL_BLOCK, ROW_BLOCK, BCSRGraph, HybridGraph
+from ..core.graph import Graph
 from .cuda.attend_bwd_kernel import attend_bwd_a, attend_bwd_b
+from .cuda.attend_common import NEG
 from .cuda.attend_online_kernel import attend_online
+from .cuda.neighbor_max_kernel import neighbor_max
+from .cuda.segment_max_kernel import segment_max
 
 
 def backward_operands(g: torch.Tensor, dtype: torch.dtype,
@@ -127,3 +135,73 @@ def gat_tiled_attend(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
                               fd32, hg, bits, keep_mul,
                               float(negative_slope), float(keep_prob))
     return out.view(n, heads, feat)
+
+
+# ---------------------------------------------------------------------------
+# neighbour max over tiles and remainder (SAGE max-pool)
+# ---------------------------------------------------------------------------
+
+
+def bcsr_neighbor_max(bg: BCSRGraph, v: torch.Tensor) -> torch.Tensor:
+    """Max over tiled in-neighbours: ``out[r, c] = max_{s: W[r,s] ≠ 0}
+    v[s, c]`` in float32, ``NEG`` where a node has no tiled in-edge (the
+    caller combines it with the remainder before substituting an empty
+    value). K7 on the card. Forward only: ``hybrid_segment_max`` carries
+    the gradient."""
+    return neighbor_max(bg, v.detach().float().contiguous())
+
+
+def _rem_segment_max(rem: Graph, gathered: torch.Tensor) -> torch.Tensor:
+    """Per-receiver max of the remainder's gathered edge values [E_pad, C]
+    (K2 on the card); only the real edges, which ``rem.row_ptr`` spans,
+    count, so the padding needs no mask. Empty rows get K2's ``EMPTY``,
+    below ``NEG / 2``. Forward only."""
+    return segment_max(gathered.detach().contiguous(), rem.receivers,
+                       rem.row_ptr, rem.n_nodes)
+
+
+def _max_pool_grad(hg: HybridGraph, v: torch.Tensor, best: torch.Tensor,
+                   g: torch.Tensor) -> torch.Tensor:
+    """d v of ``best = max over in-neighbours of v``: each ``g[r, c]`` is
+    split evenly among the in-edges ``s -> r`` (tile slots and remainder
+    edges) with ``v[s, c] == best[r, c]``. Float32 throughout."""
+    rows, cols = hg.bcsr.slot_edges
+    rem = hg.rem
+    e = rem.n_edges
+    dst = torch.cat([rows, rem.receivers[:e].long()])
+    src = torch.cat([cols, rem.senders[:e].long()])
+    hit = v[src] == best[dst]
+    ties = torch.zeros_like(best).index_add_(0, dst, hit.float())
+    share = torch.where(hit, g[dst] / ties[dst].clamp_min(1.0), 0.0)
+    return torch.zeros_like(v).index_add_(0, src, share)
+
+
+class _HybridSegmentMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, hg, empty_value):
+        v = x.detach().float().contiguous()
+        best = torch.maximum(bcsr_neighbor_max(hg.bcsr, v),
+                             _rem_segment_max(hg.rem, v[hg.rem.senders]))
+        ctx.save_for_backward(v, best)
+        ctx.hg = hg
+        return torch.where(best > NEG / 2, best, empty_value).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        v, best = ctx.saved_tensors
+        dv = _max_pool_grad(ctx.hg, v, best, g.float())
+        return dv.to(g.dtype), None, None
+
+
+def hybrid_segment_max(hg: HybridGraph, x: torch.Tensor,
+                       empty_value: float = 0.0) -> torch.Tensor:
+    """Per-node max over all in-neighbours of a ``HybridGraph`` (tiles and
+    COO remainder), the SAGE max-pool aggregation; nodes without in-edges
+    get ``empty_value`` (as ``ops.segment.segment_max``). Computed in
+    float32, returned in ``x``'s type.
+
+    The gradient goes to the neighbours that attain the max, split evenly
+    among exact ties; the JAX package splits a tie through nested ``max``
+    VJPs instead, so the two differ only where tied values carry a
+    gradient."""
+    return _HybridSegmentMax.apply(x, hg, float(empty_value))

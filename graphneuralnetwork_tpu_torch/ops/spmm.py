@@ -1,21 +1,27 @@
 """SpMM and SDDMM on padded COO edge lists.
 
-``spmm(graph, x)`` computes ``out[r] = Σ_{(s,r) ∈ E} w_sr · x[s]``: a
-gather ``x[senders] * w`` feeding ``aggregate_edges`` (K1 on the card).
-Autograd composes the backward: d x is a scatter of ``g[receivers] * w``
-by sender, d w the per-edge dot ``g[recv] · x[send]``.
+``spmm(graph, x)`` computes ``out[r] = Σ_{(s,r) ∈ E} w_sr · x[s]``: on a
+``Graph``, a gather ``x[senders] * w`` feeding ``aggregate_edges`` (K1 on
+the card); autograd composes the backward: d x is a scatter of
+``g[receivers] * w`` by sender, d w the per-edge dot ``g[recv] · x[send]``.
+On a ``HybridGraph``, the dense tiles' ``bcsr_spmm`` (K3) plus the same
+COO SpMM over the remainder.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core.bcsr import HybridGraph
 from ..core.graph import Graph
 from .aggregate import aggregate_edges, aggregate_rows
+from .bcsr_spmm import bcsr_spmm
 
 
-def spmm(graph: Graph, x: torch.Tensor) -> torch.Tensor:
+def spmm(graph: Graph | HybridGraph, x: torch.Tensor) -> torch.Tensor:
     """out[r] = Σ_e w_e · x[senders_e] for receivers_e == r; [N, F]."""
+    if hasattr(graph, "bcsr"):
+        return bcsr_spmm(graph.bcsr, x, graph.bcsr_t) + spmm(graph.rem, x)
     gathered = x[graph.senders] * graph.edge_weight[:, None].to(x.dtype)
     return aggregate_edges(graph, gathered)
 

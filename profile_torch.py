@@ -2,11 +2,14 @@
 """Where a training epoch of the PyTorch port goes on the card. Run from
 the repository root:
 
-    python3 profile_torch.py --model gcn|gat [--dtype bfloat16]
-    python3 profile_torch.py --model gat --layout hybrid [--dtype bfloat16]
+    python3 profile_torch.py --model gcn|gat [--layout hybrid]
+                             [--dtype bfloat16]
+    python3 profile_torch.py --model graphsage --layout hybrid
+                             [--aggregator mean|sum|max] [--dtype bfloat16]
 
-Trains the CLI's model on Cora (COO layout, or for GAT the CLI's
-unit-weight hybrid layout) for ``WARMUP`` epochs, then
+Trains the CLI's model on its data (GCN and GAT: Cora, on the COO layout
+or the CLI's hybrid: sym-normalised tiles for GCN, unit weights for GAT;
+GraphSAGE: the Pubmed hybrid) for ``WARMUP`` epochs, then
 times ``EPOCHS`` more with CUDA synchronisation (no profiler), then
 traces the same number under ``torch.profiler``. Prints one JSON line:
 wall ms per epoch (untraced and traced), device kernel ms per epoch, the
@@ -20,13 +23,14 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import subprocess
 import time
 
 import torch
 
 from graphneuralnetwork_tpu_torch.core.device import resolve_device
-from graphneuralnetwork_tpu_torch.data import load_cora
-from graphneuralnetwork_tpu_torch.nn import GAT, GCN
+from graphneuralnetwork_tpu_torch.data import load_cora, load_pubmed_fullbatch
+from graphneuralnetwork_tpu_torch.nn import GAT, GCN, GraphSAGE
 from graphneuralnetwork_tpu_torch.train.loop import (create_train_state,
                                                      make_eval_fn)
 from graphneuralnetwork_tpu_torch.train.scan_loop import run_epochs
@@ -37,22 +41,33 @@ WARMUP, EPOCHS, TOP = 20, 50, 8
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=["gcn", "gat"], default="gcn")
+    ap.add_argument("--model", choices=["gcn", "gat", "graphsage"],
+                    default="gcn")
     ap.add_argument("--dtype", choices=["float32", "bfloat16"],
                     default="float32")
     ap.add_argument("--layout", choices=["coo", "hybrid"], default="coo",
-                    help="hybrid: GAT only, on kernels K4-K6")
+                    help="hybrid: GCN on K3 + K1, GAT on K4-K6, GraphSAGE "
+                         "(hybrid only) on K3 + K1 or K7 + K2")
+    ap.add_argument("--aggregator", choices=["mean", "sum", "max"],
+                    default="mean", help="GraphSAGE's aggregator")
     args = ap.parse_args(argv)
-    if args.layout == "hybrid" and args.model != "gat":
-        ap.error("--layout hybrid profiles GAT only")
+    if args.model == "graphsage" and args.layout != "hybrid":
+        ap.error("--model graphsage profiles the hybrid layout only")
     device = resolve_device("cuda")
     cdtype = torch.bfloat16 if args.dtype == "bfloat16" else None
-    data = load_cora(seed=0, layout=args.layout, device=device,
-                     model=args.model, tile_dtype=cdtype or torch.float32)
-    f =int(data.features.shape[1])
+    if args.model == "graphsage":
+        data = load_pubmed_fullbatch(seed=0, layout="hybrid", device=device)
+    else:
+        data = load_cora(seed=0, layout=args.layout, device=device,
+                         model=args.model, tile_dtype=cdtype or torch.float32)
+    f = int(data.features.shape[1])
     if args.model == "gcn":
         model = GCN(f, hidden=128, num_classes=data.num_classes, dtype=cdtype)
         opt = make_optimizer("adamw", 2e-3, weight_decay=5e-4)
+    elif args.model == "graphsage":
+        model = GraphSAGE(f, hidden_dims=(128,), num_classes=data.num_classes,
+                          aggregator=args.aggregator, dtype=cdtype)
+        opt = make_optimizer("adamw", 1e-2, weight_decay=1e-4)
     else:
         model = GAT(f, hidden=8, num_heads=8, num_classes=data.num_classes,
                     dtype=cdtype)
@@ -86,8 +101,12 @@ def main(argv=None) -> dict:
     device_ms = sum(by_name.values()) / 1e3 / EPOCHS
     result = {
         "model": args.model, "dtype": args.dtype, "layout": args.layout,
+        "aggregator": args.aggregator if args.model == "graphsage" else None,
         "epochs": EPOCHS,
-        "card": torch.cuda.get_device_name(0),
+        "card": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0],
         "wall_ms_per_epoch": wall_ms,
         "traced_wall_ms_per_epoch": traced_ms,
         "device_ms_per_epoch": device_ms if kernels else None,
