@@ -16,7 +16,9 @@ Phases, each printing one JSON line:
                K6 on the Cora GAT hybrid (8x8 and 1x7), a 2M-edge community
                graph (8x128) and a hub graph whose densest row block holds
                more than 8 remainder chunks and 6 tiles; float32 and
-               bfloat16, with and without attention dropout; K3 on the
+               bfloat16, with and without attention dropout; K8, K9 and
+               K10 on the same operands with the three-pass shift, and
+               once at Cora 8x8 with the profiler's m = 0; K3 on the
                GCN Cora hybrid (F 128 and 7), the Pubmed SAGE hybrid (F 500,
                128 and 1) and the 2M-edge community graph's tiles and
                transpose tiles (F 128), float32 and bfloat16; K7 on the
@@ -27,16 +29,23 @@ Phases, each printing one JSON line:
                Pubmed hybrid, kernels against plain versions end to end:
                logits and gradients on the card agree with the same model
                on the CPU;
-  5. gcn     — the main path: ``--model gcn`` through the CLI entry point
+  5. three_pass — ``gat_tiled_attend_parts`` (K7, K2, K8, K10) at the GAT
+               Cora widths, forward and gradients: card against CPU, and
+               against ``gat_tiled_attend`` (K4-K6) on the card; exact
+               launch counts;
+  6. profile_attend — ``tools/profile_attend.py`` at its default shape in
+               bfloat16 and float32: every stage's time and its exact
+               launches per call (K9 only in ``tile_parts``);
+  7. gcn     — the main path: ``--model gcn`` through the CLI entry point
                (auto layout -> COO), 200 epochs; K1 must have launched;
-  6. gat     — ``--model gat --layout coo``, 50 epochs; K1 and K2 must have
+  8. gat     — ``--model gat --layout coo``, 50 epochs; K1 and K2 must have
                launched;
-  7. gat_hybrid — ``--model gat`` (auto layout -> hybrid), 50 epochs in
+  9. gat_hybrid — ``--model gat`` (auto layout -> hybrid), 50 epochs in
                float32, then in bfloat16; exact K4/K5/K6 launch counts and
                no K1 or K2 launch;
-  8. gcn_hybrid — ``--model gcn --layout hybrid``, 200 epochs in float32,
+ 10. gcn_hybrid — ``--model gcn --layout hybrid``, 200 epochs in float32,
                then in bfloat16; exact K3 and K1 launch counts;
-  9. graphsage_hybrid(_max) — ``--model graphsage --layout hybrid``, 100
+ 11. graphsage_hybrid(_max) — ``--model graphsage --layout hybrid``, 100
                epochs with the mean aggregator (K3 and K1, no K7 or K2),
                then with ``--set aggregator=max`` (K7 and K2, no K3 or K1).
 Every CLI run must reach test_acc >= 0.80 with exact launch counts.
@@ -48,7 +57,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -64,11 +72,18 @@ from graphneuralnetwork_tpu_torch.nn import GAT, GCN, GraphSAGE
 from graphneuralnetwork_tpu_torch.ops import bcsr_attention
 from graphneuralnetwork_tpu_torch.ops.cuda import attend_bwd_kernel as k56
 from graphneuralnetwork_tpu_torch.ops.cuda import attend_online_kernel as k4
+from graphneuralnetwork_tpu_torch.ops.cuda import attend_parts_kernel as k910
 from graphneuralnetwork_tpu_torch.ops.cuda import bcsr_spmm_kernel as k3
 from graphneuralnetwork_tpu_torch.ops.cuda import build
 from graphneuralnetwork_tpu_torch.ops.cuda import neighbor_max_kernel as k7
+from graphneuralnetwork_tpu_torch.ops.cuda import rem_attend_kernel as k8
 from graphneuralnetwork_tpu_torch.ops.cuda import segment_max_kernel as k2
 from graphneuralnetwork_tpu_torch.ops.cuda import spmm_kernel as k1
+from graphneuralnetwork_tpu_torch.ops.cuda.counters import (COUNTERS,
+                                                            read_launches,
+                                                            reset_launches)
+from graphneuralnetwork_tpu_torch.tools import profile_attend
+from graphneuralnetwork_tpu_torch.tools.timing import time_ms
 from graphneuralnetwork_tpu_torch.train.metrics import (
     masked_softmax_cross_entropy)
 
@@ -118,27 +133,6 @@ PATH_TOL = 1e-4
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def time_ms(fn, reps: int = 7, batch: int = 20) -> float:
-    """Median device time of one call, in ms. A long sleep kernel holds the
-    stream while the host queues a batch, so the events time the calls
-    back to back on the card, not the host's launch rate."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
-        start.record()
-        for _ in range(batch):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / batch)
-    return statistics.median(times)
 
 
 def bound(bytes_moved: int, ops: int, ops_peak: float = PEAK_F32_OPS_PER_S,
@@ -338,25 +332,56 @@ def _attend_err(name, out, ref, dtype):
     return err
 
 
+def _held(kern, tag, checks):
+    """Holds each (output, kernel's, plain's, ``ATTEND_TOL`` key) of one
+    kernel; (the largest error, {output: [rtol, atol] applied})."""
+    err = max(_attend_err(f"{kern} {name} {tag}", out, ref, key)
+              for name, out, ref, key in checks)
+    return err, {name: list(ATTEND_TOL[key]) for name, _, _, key in checks}
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
 
 
-def _attend_work(kern, hg, heads, hf, bits, node_bytes):
+def _attend_work(kern, hg, heads, hf, bits, by_col, by_row, whole):
     """(bytes, flops, exps) of one call on this run's data: every input
-    that the function needs read once and every output written once
-    (``node_bytes`` holds the [N, ...] arrays); 2 flops per (edge, column)
-    per contraction over the nonzero tile slots and the remainder edges
-    (K4 and K5 one contraction, K6 two: q and dx); one exp per (edge,
-    head). Under dropout the function needs one lattice word per nonzero
-    tile slot (the other slots mask nothing), each remainder edge's
-    multipliers, and for K6 the maps into the forward's masks."""
+    that the function needs read once and every output written once; 2
+    flops per (edge, column) per contraction over the edges the kernel
+    visits (K4-K6 the nonzero tile slots and the remainder edges, K8 the
+    remainder edges only, K9 and K10 the nonzero tile slots only; K6 two
+    contractions, q and dx, the others one); one exp per (edge, head).
+    Of the [N, ...] operands, those of ``by_col`` count only at the nodes
+    that the visited edges name as senders (columns) and those of
+    ``by_row`` only at the rows that receive one; ``whole`` (the outputs,
+    which cover every row, and K10's seeds) counts in full. K6 works in the
+    transpose layout, where a row is a sender. Under dropout (``bits``
+    given) the function needs one lattice word per nonzero tile slot (the
+    other slots mask nothing), each remainder edge's multipliers, and for
+    K6 the maps into the forward's masks."""
     bg, rem = (hg.bcsr_t, hg.rem_t) if kern == "K6" else (hg.bcsr, hg.rem)
-    e = rem.n_edges
-    nnz = int(torch.count_nonzero(bg.tiles))
-    nbytes = node_bytes + _nbytes(bg.tiles, bg.col_ids, bg.tile_off,
-                                  bg.tile_cnt, rem.row_ptr) + e * 8
+    tiles, remainder = kern != "K8", kern not in ("K9", "K10")
+    e = rem.n_edges if remainder else 0
+    rows, cols = [], []
+    if tiles:
+        rows.append(bg.slot_edges[0])
+        cols.append(bg.slot_edges[1])
+    if remainder:
+        rows.append(rem.receivers[:e].long())
+        cols.append(rem.senders[:e].long())
+    nnz = int(bg.slot_edges[0].numel()) if tiles else 0
+
+    def named(ends, tensors):   # bytes of the rows that ``ends`` name
+        per_row = sum(_nbytes(t) // t.shape[0] for t in tensors)
+        return per_row * int(torch.cat(ends).unique().numel())
+
+    nbytes = (named(cols, by_col) + named(rows, by_row) + _nbytes(*whole)
+              + e * 8)
+    if tiles:
+        nbytes += _nbytes(bg.tiles, bg.col_ids, bg.tile_off, bg.tile_cnt)
+    if remainder:
+        nbytes += _nbytes(rem.row_ptr)
     if bits is not None:
         nbytes += nnz * 4 + e * heads * 4
         if kern == "K6":   # bits_tmap and rem_t_eperm
@@ -365,10 +390,40 @@ def _attend_work(kern, hg, heads, hf, bits, node_bytes):
     return nbytes, 2 * contractions * (nnz + e) * hf, (nnz + e) * heads
 
 
+def _timed_cases(calls, errs, label, hg, heads, feat, dtype, bits,
+                 plain_reps, **meta):
+    """One case per kernel of ``calls`` (kernel call, plain call, and the
+    [N, ...] operands it reads by sender, by receiver and whole, as
+    ``_attend_work`` takes them): its error and the tolerance each output
+    was held to (``errs``, from ``_held``), its time and its plain
+    version's, and its bound."""
+    dname = str(dtype).replace("torch.", "")
+    peak = PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 else \
+        PEAK_F32_OPS_PER_S
+    cases = []
+    for kern, (kernel, plain, by_col, by_row, whole) in calls.items():
+        nbytes, flops, exps = _attend_work(kern, hg, heads, heads * feat,
+                                           bits, by_col, by_row, whole)
+        b_ms, b_by = bound(nbytes, flops, peak, exps)
+        err, tolerance = errs[kern]
+        cases.append(dict(
+            kernel=kern, graph=label, dtype=dname, dropout=bits is not None,
+            **meta, shape=[hg.n_nodes, heads, feat], tiles=hg.bcsr.n_tiles,
+            remainder_edges=hg.rem.n_edges, max_abs_err=err,
+            tolerance=tolerance, kernel_ms=time_ms(kernel),
+            plain_ms=time_ms(plain, *plain_reps), library_ms=None,
+            library="none: no single PyTorch call computes it",
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+            exps=exps))
+        emit({"phase": "kernels", **cases[-1]})
+    return cases
+
+
 def _attend_case(label, hg, heads, feat, dtype, dropping, gen, plain_reps):
     """K4, K5 and K6 on random operands of one shape against their plain
     versions, then timed. The backward's operands follow the forward's
-    (m zeroed where den == 0, as the autograd function does)."""
+    (m zeroed where den == 0, as the autograd function does). Then K8-K10
+    on the same operands, with the three-pass attend's shift."""
     n, hf = hg.n_nodes, heads * feat
     dname = str(dtype).replace("torch.", "")
 
@@ -394,43 +449,78 @@ def _attend_case(label, hg, heads, feat, dtype, dropping, gen, plain_reps):
     if not bool((m[~live] == k4.NEG).all()):
         raise AssertionError(f"K4 {tag}: m of an empty row is not NEG")
     errs = {
-        "K4": max(_attend_err(f"K4 out {tag}", out, r_out, dname),
-                  _attend_err(f"K4 den {tag}", den, r_den, "float32"),
-                  _attend_err(f"K4 m {tag}", m[live], r_m[live], "float32")),
-        "K5": _attend_err(f"K5 dfd {tag}", dfd, r_dfd, "float32"),
-        "K6": max(_attend_err(f"K6 dx {tag}", dx, r_dx, dname),
-                  _attend_err(f"K6 dfs {tag}", dfs, r_dfs, "float32")),
+        "K4": _held("K4", tag, [("out", out, r_out, dname),
+                                ("den", den, r_den, "float32"),
+                                ("m", m[live], r_m[live], "float32")]),
+        "K5": _held("K5", tag, [("dfd", dfd, r_dfd, "float32")]),
+        "K6": _held("K6", tag, [("dx", dx, r_dx, dname),
+                                ("dfs", dfs, r_dfs, "float32")]),
     }
     calls = {
         "K4": (lambda: k4.attend_online(*fwd),
                lambda: k4.attend_online_plain(*fwd),
-               _nbytes(x, fs, fd, out, den, m)),
+               (x, fs), (fd,), (out, den, m)),
         "K5": (lambda: k56.attend_bwd_a(*bwd),
                lambda: k56.attend_bwd_a_plain(*bwd),
-               _nbytes(x, gn, fs, fdm3, dfd)),
+               (x, fs), (gn, fdm3), (dfd,)),
+        # the transpose layout: a row is a sender, a column a receiver
         "K6": (lambda: k56.attend_bwd_b(*bwd),
                lambda: k56.attend_bwd_b_plain(*bwd),
-               _nbytes(x, gn, fs, fdm3, dx, dfs)),
+               (gn, fdm3), (x, fs), (dx, dfs)),
     }
-    peak = PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 else \
-        PEAK_F32_OPS_PER_S
-    cases = []
-    for kern, (kernel, plain, node_bytes) in calls.items():
-        nbytes, flops, exps = _attend_work(kern, hg, heads, hf, bits,
-                                           node_bytes)
-        b_ms, b_by = bound(nbytes, flops, peak, exps)
-        rtol, atol = ATTEND_TOL[dname]
-        cases.append(dict(
-            kernel=kern, graph=label, dtype=dname, dropout=dropping,
-            shape=[n, heads, feat], tiles=hg.bcsr.n_tiles,
-            remainder_edges=hg.rem.n_edges, max_abs_err=errs[kern],
-            rtol=rtol, atol=atol, kernel_ms=time_ms(kernel),
-            plain_ms=time_ms(plain, *plain_reps), library_ms=None,
-            library="none: no single PyTorch call computes it",
-            bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
-            exps=exps))
-        emit({"phase": "kernels", **cases[-1]})
-    return cases
+    shift = bcsr_attention.three_pass_shift(hg, fs, fd, 0.2)
+    return (_timed_cases(calls, errs, label, hg, heads, feat, dtype, bits,
+                         plain_reps)
+            + _parts_cases(label, hg, x, fs, fd, shift, bits, keep_mul,
+                           plain_reps, "exact"))
+
+
+def _parts_cases(label, hg, x, fs, fd, m, bits, keep_mul, plain_reps,
+                 shift):
+    """K8, K9 and K10 on one set of operands against their plain versions,
+    then timed. K10 is seeded with the plain K8's partials, as the
+    three-pass attend seeds it with K8's. ``shift`` names ``m``: "exact"
+    (the three-pass attend's) or "zero" (the profiler's stand-in, where
+    the exponent's clamp bites). All outputs are float32 and both sides
+    multiply in float32, so they share the float32 tolerance."""
+    heads = fs.shape[1]
+    feat = x.shape[1] // heads
+    keep_prob = 1.0 - GAT_DROPOUT if bits is not None else 1.0
+    rem_args = (hg, x, fs, fd, m, keep_mul, 0.2)
+    tile_args = (hg, x, fs, fd, m, bits, 0.2, keep_prob)
+    num, den = k8.rem_attend(*rem_args)
+    r_num, r_den = k8.rem_attend_plain(*rem_args)
+    fused_args = (hg, x, fs, fd, m, r_num, r_den, bits, 0.2, keep_prob)
+    t_num, t_den = k910.tile_parts(*tile_args)
+    rt_num, rt_den = k910.tile_parts_plain(*tile_args)
+    out, f_den = k910.attend_fused(*fused_args)
+    r_out, rf_den = k910.attend_fused_plain(*fused_args)
+    torch.cuda.synchronize()
+    dname = str(x.dtype).replace("torch.", "")
+    tag = (f"{label} {dname} {heads}x{feat} dropout={bits is not None} "
+           f"m={shift}")
+    errs = {
+        "K8": _held("K8", tag, [("num", num, r_num, "float32"),
+                                ("den", den, r_den, "float32")]),
+        "K9": _held("K9", tag, [("num", t_num, rt_num, "float32"),
+                                ("den", t_den, rt_den, "float32")]),
+        "K10": _held("K10", tag, [("out", out, r_out, "float32"),
+                                  ("den", f_den, rf_den, "float32")]),
+    }
+    # every row of K10's seeds is read: a row without tiles divides them
+    calls = {
+        "K8": (lambda: k8.rem_attend(*rem_args),
+               lambda: k8.rem_attend_plain(*rem_args),
+               (x, fs), (fd, m), (num, den)),
+        "K9": (lambda: k910.tile_parts(*tile_args),
+               lambda: k910.tile_parts_plain(*tile_args),
+               (x, fs), (fd, m), (t_num, t_den)),
+        "K10": (lambda: k910.attend_fused(*fused_args),
+                lambda: k910.attend_fused_plain(*fused_args),
+                (x, fs), (fd, m), (r_num, r_den, out, f_den)),
+    }
+    return _timed_cases(calls, errs, label, hg, heads, feat, x.dtype, bits,
+                        plain_reps, shift=shift)
 
 
 def _large_hybrid():
@@ -442,8 +532,9 @@ def _large_hybrid():
 
 
 def phase_attend_kernels(cora_hybrid, large) -> list[dict]:
-    """K4-K6 at the GAT path's Cora shapes, a large community graph and a
-    hub graph; float32 and bfloat16 (x and tiles), dropout off and on."""
+    """K4-K6 and K8-K10 at the GAT path's Cora shapes, a large community
+    graph and a hub graph; float32 and bfloat16 (x and tiles), dropout off
+    and on; K8-K10 once more at Cora 8x8 with ``m = 0``."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     big = ATTEND_LARGE
@@ -474,6 +565,14 @@ def phase_attend_kernels(cora_hybrid, large) -> list[dict]:
             for dropping in (False, True):
                 cases += _attend_case(label, hg, heads, feat, dtype,
                                       dropping, gen, plain_reps)
+    # K8-K10 with the profiler's stand-in m = 0: the exponent's clamp at 0
+    # caps every term with a positive score at its weight
+    n = cora_hybrid.n_nodes
+    x = torch.randn(n, 64, device=DEVICE, generator=gen)
+    fs = torch.randn(n, 8, device=DEVICE, generator=gen)
+    fd = torch.randn(n, 8, device=DEVICE, generator=gen)
+    cases += _parts_cases("cora", cora_hybrid, x, fs, fd, torch.zeros_like(fs),
+                          None, None, (3, 5), "zero")
     emit({"phase": "kernels", "attend_seconds": time.perf_counter() - t0,
           "cases": len(cases)})
     return cases
@@ -686,22 +785,118 @@ def phase_path(cora, cora_h, cora_hg, cora_g, pubmed) -> None:
           "tolerance": PATH_TOL, **report})
 
 
-#: The launch counter of each kernel's wrapper.
-COUNTERS = {"K1": k1.segment_sum, "K2": k2.segment_max,
-            "K3": k3.bcsr_spmm, "K4": k4.attend_online,
-            "K5": k56.attend_bwd_a, "K6": k56.attend_bwd_b,
-            "K7": k7.neighbor_max}
+def _rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a.cpu() - b.cpu()).abs().max()) / float(b.abs().max())
+
+
+def phase_three_pass(cora_hg) -> dict:
+    """``gat_tiled_attend_parts`` at the GAT layers' Cora widths (8 x 8 with
+    attention dropout, then 1 x 7), forward and backward, on random
+    float32 operands: on the card against the CPU (PATH_TOL of each
+    tensor's scale), and on the card against ``gat_tiled_attend`` (K4-K6),
+    the same function (ATTEND_TOL). The launch counts are set to 0 just
+    before the card's three-pass run and read just after: one K7, K2, K8
+    and K10 each per call, no other kernel (the backward is plain
+    PyTorch)."""
+    t0 = time.perf_counter()
+    hg_cpu = cora_hg.to("cpu")
+    gen = torch.Generator().manual_seed(4)
+    n = cora_hg.n_nodes
+    launches = dict.fromkeys(COUNTERS, 0)
+    report = {}
+    for heads, feat, dropout in ((8, 8, GAT_DROPOUT), (1, 7, 0.0)):
+        ops = [torch.randn(*shape, generator=gen) for shape in
+               ((n, heads, feat), (n, heads), (n, heads), (n, heads, feat))]
+        masks = (bcsr_attention.draw_dropout(hg_cpu, heads, 1.0 - dropout,
+                                             gen) if dropout else None)
+
+        def run(fn, hg, count=False):
+            dev = hg.device
+            x, fs, fd, g = (a.to(dev, copy=True) for a in ops)
+            ins = [a.requires_grad_() for a in (x, fs, fd)]
+            kw = {}
+            if masks is not None:
+                kw = dict(attn_dropout=dropout, bits=masks[0].to(dev),
+                          keep_mul=masks[1].to(dev))
+            if count:
+                reset_launches()
+            out = fn(hg, *ins, **kw)
+            (out * g).sum().backward()
+            if count:
+                torch.cuda.synchronize()
+                for k, v in read_launches().items():
+                    launches[k] += v
+            return [out.detach()] + [a.grad for a in ins]
+
+        card = run(bcsr_attention.gat_tiled_attend_parts, cora_hg, True)
+        cpu = run(bcsr_attention.gat_tiled_attend_parts, hg_cpu)
+        online = run(bcsr_attention.gat_tiled_attend, cora_hg)
+        torch.cuda.synchronize()
+        names = ("out", "dx", "dfs", "dfd")
+        vs_cpu = {k: _rel_err(a, b) for k, a, b in zip(names, card, cpu)}
+        if max(vs_cpu.values()) > PATH_TOL:
+            raise AssertionError(f"three-pass {heads}x{feat}: card vs CPU "
+                                 f"rel errs {vs_cpu}")
+        vs_online = {k: _attend_err(f"three-pass vs K4-K6 {k} {heads}x{feat}",
+                                    a, b, "float32")
+                     for k, a, b in zip(names, card, online)}
+        report[f"{heads}x{feat}"] = dict(dropout=dropout,
+                                         card_vs_cpu_rel_err=vs_cpu,
+                                         vs_online_max_abs_err=vs_online)
+    want = {"K7": 2, "K2": 2, "K8": 2, "K10": 2}
+    if launches != {k: want.get(k, 0) for k in COUNTERS}:
+        raise AssertionError(f"three-pass launches {launches}, expected "
+                             f"{want} and no other kernel")
+    emit({"phase": "three_pass", "seconds": time.perf_counter() - t0,
+          "path_tolerance": PATH_TOL, "attend_tolerance": ATTEND_TOL,
+          **report, "launches": launches})
+    return launches
+
+
+#: The stage profiler's arguments (its defaults: the JAX tool's shape).
+PROFILE_ARGV: list[str] = []
+#: The kernels each of its stages launches per call; no other kernel.
+PROFILE_LAUNCHES = {
+    "nmax_tiles": {"K7": 1}, "nmax_rem": {"K2": 1}, "tile_parts": {"K9": 1},
+    "rem_parts": {"K8": 1}, "fused": {"K10": 1}, "epilogue": {},
+    "three_pass": {"K7": 1, "K2": 1, "K8": 1, "K10": 1}, "full": {"K4": 1}}
+
+
+def phase_profile_attend() -> dict:
+    """``tools/profile_attend.py``'s ``main`` at its defaults (131,072
+    nodes, 2,097,152 edges, communities of 256, 8 heads x 128), in bfloat16
+    and then float32: every stage with its exact launches per call. The
+    launch counts are set to 0 before each run and read after it."""
+    launches = dict.fromkeys(COUNTERS, 0)
+    for dtype in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
+        reset_launches()
+        res = profile_attend.main(PROFILE_ARGV + ["--dtype", dtype,
+                                                  "--device", DEVICE])
+        for k, v in read_launches().items():
+            launches[k] += v
+        per_call = {name: e["launches"] for name, e in res["stages"].items()}
+        if per_call != PROFILE_LAUNCHES:
+            raise AssertionError(f"profile_attend {dtype}: launches per "
+                                 f"call {per_call}, expected "
+                                 f"{PROFILE_LAUNCHES}")
+        emit({"phase": "profile_attend", "dtype": dtype,
+              "seconds": time.perf_counter() - t0, "graph": res["graph"],
+              "ms": {name: e["ms"] for name, e in res["stages"].items()},
+              "launches_per_call": per_call})
+    emit({"phase": "profile_attend", "launches": launches})
+    return launches
 
 
 def _drive(phase, argv, expect):
     """Run the CLI with the launch counts set to 0 just before and read
     just after; ``expect`` maps each kernel to its launches per epoch and
     per evaluation (a kernel it leaves out must not launch)."""
-    for wrapper in COUNTERS.values():
-        wrapper.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     res = cli_main(argv)
-    launches = {k: w.launches for k, w in COUNTERS.items()}
+    launches = read_launches()
     seconds = time.perf_counter() - t0
     epochs = res["epochs"]
     for kern in COUNTERS:
@@ -726,14 +921,16 @@ def _width(graph, width):
 
 def _cora_gat_train(c):
     """The attend kernels' timed case: the first GAT layer (8 x 8) of a
-    training step, with attention dropout."""
-    return c["graph"] == "cora" and c["shape"][1:] == [8, 8] and c["dropout"]
+    training step, with attention dropout (K8-K10: with the exact
+    shift)."""
+    return (c["graph"] == "cora" and c["shape"][1:] == [8, 8]
+            and c["dropout"] and c.get("shift", "exact") == "exact")
 
 
 #: name, source, TPU kernel replaced, and which float32 case the summary
 #: times (GCN's first layer for K1 and for K3 on the Cora hybrid; GAT's 8
-#: heads for K2; the first GAT layer of a training step for K4-K6;
-#: SAGE's first layer on the Pubmed hybrid for K7)
+#: heads for K2; the first GAT layer of a training step for K4-K6 and
+#: K8-K10; SAGE's first layer on the Pubmed hybrid for K7)
 KERNELS = {
     "K1": ("segment_sum", "graphneuralnetwork_tpu_torch/csrc/spmm_kernel.cu",
            "graphneuralnetwork_tpu/ops/pallas/spmm_kernel.py:94",
@@ -762,6 +959,18 @@ KERNELS = {
            "graphneuralnetwork_tpu_torch/csrc/neighbor_max_kernel.cu",
            "graphneuralnetwork_tpu/ops/bcsr_attention.py:131",
            _width("pubmed", 500)),
+    "K8": ("rem_attend",
+           "graphneuralnetwork_tpu_torch/csrc/attend_parts_kernel.cu",
+           "graphneuralnetwork_tpu/ops/pallas/rem_attend_kernel.py:48",
+           _cora_gat_train),
+    "K9": ("tile_parts",
+           "graphneuralnetwork_tpu_torch/csrc/attend_parts_kernel.cu",
+           "graphneuralnetwork_tpu/ops/bcsr_attention.py:417",
+           _cora_gat_train),
+    "K10": ("attend_fused",
+            "graphneuralnetwork_tpu_torch/csrc/attend_parts_kernel.cu",
+            "graphneuralnetwork_tpu/ops/bcsr_attention.py:440",
+            _cora_gat_train),
 }
 
 
@@ -803,7 +1012,10 @@ def main() -> None:
              + phase_tile_kernels(cora_g.graph, pubmed.graph, large))
     del large
     phase_path(cora, cora_h, cora_hg, cora_g, pubmed)
-    runs = [
+    # the three-pass attend and its stage profiler: the only paths that
+    # reach K8-K10 (no CLI run does)
+    runs = [phase_three_pass(cora_hg), phase_profile_attend()]
+    runs += [
         _drive("gcn", ["--model", "gcn", "--epochs", str(GCN_EPOCHS),
                        "--device", DEVICE, "--quiet"], {"K1": (4, 2)}),
         _drive("gat", ["--model", "gat", "--layout", "coo", "--epochs",

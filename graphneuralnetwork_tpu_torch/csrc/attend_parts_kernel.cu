@@ -1,0 +1,302 @@
+// K8, K9 and K10: the softmax partials of the three-pass hybrid GAT attend,
+// for Hopper (sm_90a).
+//
+// With the shift m[r,h] given (the three-pass attend takes it from the
+// neighbour max of f_src: K7 on the tiles, K2 on the remainder), every edge
+// s -> r of a receiver row r contributes, per head h,
+//
+//   p    = w * exp(min(LeakyReLU(f_dst[r,h] + f_src[s,h]) - m[r,h], 0))
+//   den += p;   num += p * keep * x[s, h, :]
+//
+//   gnn_rem_attend   (K8)  over the row's real COO remainder edges
+//                          (w: edge weight; keep: keep_mul[e,h]);
+//                          writes num [n, hf] and den [n, heads]
+//   gnn_tile_parts   (K9)  over the row's nonzero slots in its row block's
+//                          dense tiles (w: the tile count; keep:
+//                          head_keep(bits[slot], h) / keep_prob);
+//                          writes num and den
+//   gnn_attend_fused (K10) as K9, with num and den started from num_init and
+//                          den_init (the remainder's partials); writes
+//                          out = num / max(den, 1e-16) and the raw den
+//
+// Outputs are float32 and every row < n is written (zeros on a row without
+// edges; K10 writes num_init / max(den_init, 1e-16) on a row whose row block
+// has no tile). The exponent is clamped at 0 whatever m is, as the TPU
+// kernels clamp it.
+//
+// Replaces the TPU kernels _rem_attend_kernel
+// (graphneuralnetwork_tpu/ops/pallas/rem_attend_kernel.py, rem_attend_pallas),
+// _attend_kernel and _attend_fused_kernel
+// (graphneuralnetwork_tpu/ops/bcsr_attention.py, _parts_pallas and
+// _fused_pallas). A TPU grid step owns a 128-row block and one 1,024-edge
+// remainder chunk or one dense tile: K8 fetches each edge's receiver values
+// and scatters its terms with one-hot matmuls on the matrix unit, K9 and K10
+// multiply the whole 128x128 probability tile, zero slots included, with the
+// x block. None of that carries over. The work is K4's second pass
+// (attend_online_kernel.cu) split at the tile/remainder boundary: one warp
+// owns one receiver row and reads its values directly, the remainder loop
+// walks rem.row_ptr (the real edges only), and the tile loop turns each
+// 32-slot word of the receiver's tile row into a __ballot_sync mask, so an
+// empty slot reads no x.
+//
+// Bound: bytes, once per edge a gathered x row ([H*F] values) and for K9/K10
+// once per tile the receiver's 128-slot tile row (and lattice row); one exp
+// per (edge, head) and 2 flops per (edge, column). Design for it: as in K4,
+// each head's lane group reads its F columns of a gathered x row as adjacent
+// runs and needs no other lane's value (attend_common.cuh); float32 sums in
+// registers, no atomics, a fixed edge order, deterministic. A hub row
+// serialises on its warp; tensor cores, TMA and hub-row splitting are later
+// work.
+
+#include "attend_common.cuh"
+
+namespace gnn_attend {
+namespace {
+
+enum Mode { kRem = 0, kTiles = 1, kFused = 2 };
+
+struct PartsArgs {
+  const void* x;           // [n, hf] XT
+  const float* fs;         // [n, heads]
+  const float* fd;         // [n, heads]
+  const float* m;          // [n, heads]
+  const void* tiles;       // [T, 128, 128] float or bf16 (K9, K10)
+  const int* bits;         // [T, 128, 128] uint32 lattice, or null
+  const int* col_ids;      // [T]
+  const int* tile_off;     // [n_row_blocks]
+  const int* tile_cnt;     // [n_row_blocks]
+  const int* rem_senders;  // [E_pad] receiver-sorted remainder (K8)
+  const int* rem_row_ptr;  // [n + 1]
+  const float* rem_w;      // [E_pad]
+  const float* keep_mul;   // [E_pad, heads], or null
+  const float* num_init;   // [n, hf] (K10)
+  const float* den_init;   // [n, heads] (K10)
+  float* num;              // [n, hf]: num (K8, K9) or out (K10)
+  float* den;              // [n, heads]
+  int n, heads, feat, tile_bf16, dropping;
+  float slope, inv_keep;
+  uint32_t thresh;
+};
+
+// acc[j] += pn * x_s[f] for this lane's columns f of its head.
+template <typename XT, int CPL>
+__device__ __forceinline__ void accumulate(float (&acc)[CPL], float pn,
+                                           const XT* xs, const Lanes& L,
+                                           int feat) {
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    const int f = L.sub + L.group * j;
+    if (L.active && f < feat) acc[j] += pn * to_float(xs[f]);
+  }
+}
+
+template <typename XT, int CPL, int MODE>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+    attend_parts_kernel(PartsArgs a) {
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= a.n) return;   // uniform per warp
+  const Lanes L = lane_layout(threadIdx.x & 31, a.heads);
+  const int heads = a.heads, feat = a.feat, h = L.head;
+  const long long hf = static_cast<long long>(heads) * feat;
+  const XT* x = static_cast<const XT*>(a.x) + h * feat;   // head h's columns
+  const long long out_base = row * hf + h * feat;
+  const float fd = a.fd[row * heads + h];
+  const float m = a.m[row * heads + h];
+
+  float acc[CPL];
+  float den = 0.f;
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    const int f = L.sub + L.group * j;
+    acc[j] = MODE == kFused && L.active && f < feat
+                 ? a.num_init[out_base + f]
+                 : 0.f;
+  }
+  if (MODE == kFused) den = a.den_init[row * heads + h];
+
+  if (MODE == kRem) {
+    const int e0 = a.rem_row_ptr[row], e1 = a.rem_row_ptr[row + 1];
+    for (int e = e0; e < e1; ++e) {
+      const int s = a.rem_senders[e];
+      const float sc = leaky(fd + a.fs[s * heads + h], a.slope);
+      const float p = a.rem_w[e] * expf(fminf(sc - m, 0.f));
+      den += p;
+      const float pn =
+          a.dropping ? p * a.keep_mul[static_cast<long long>(e) * heads + h]
+                     : p;
+      accumulate<XT, CPL>(acc, pn, x + s * hf, L, feat);
+    }
+  } else {
+    // a row block without tiles runs no iteration: K10 still writes the
+    // remainder's partials divided below
+    const int rb = row / kRowBlock, ri = row % kRowBlock;
+    const int t0 = a.tile_off[rb], t1 = t0 + a.tile_cnt[rb];
+    for (int t = t0; t < t1; ++t) {
+      const int cb = a.col_ids[t];
+      const long long base = (static_cast<long long>(t) * kRowBlock + ri) *
+                             kColBlock;
+#pragma unroll
+      for (int q = 0; q < kColBlock / 32; ++q) {
+        const long long slot = base + q * 32 + (threadIdx.x & 31);
+        const float wv = tile_val(a.tiles, a.tile_bf16, slot);
+        const uint32_t bv =
+            a.dropping && wv != 0.f ? static_cast<uint32_t>(a.bits[slot])
+                                    : 0u;
+        unsigned nz = __ballot_sync(kFull, wv != 0.f);
+        while (nz) {
+          const int l = __ffs(nz) - 1;
+          nz &= nz - 1;
+          const float w = __shfl_sync(kFull, wv, l);
+          const uint32_t b = __shfl_sync(kFull, bv, l);
+          const int s = cb * kColBlock + q * 32 + l;
+          const float sc = leaky(fd + a.fs[s * heads + h], a.slope);
+          const float p = w * expf(fminf(sc - m, 0.f));
+          den += p;
+          const float pn = !a.dropping ? p
+                           : head_keep(b, h, a.thresh) ? p * a.inv_keep
+                                                       : 0.f;
+          accumulate<XT, CPL>(acc, pn, x + s * hf, L, feat);
+        }
+      }
+    }
+  }
+
+  if (!L.active) return;
+  if (L.sub == 0) a.den[row * heads + h] = den;
+  // K10 divides in-register by the clamped mass; den stays raw
+  const float d = MODE == kFused ? fmaxf(den, 1e-16f) : 1.f;
+  float* out = a.num + out_base;
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    const int f = L.sub + L.group * j;
+    if (f < feat) out[f] = MODE == kFused ? acc[j] / d : acc[j];
+  }
+}
+
+template <typename XT, int MODE>
+cudaError_t launch_typed(const PartsArgs& a, int cpl, cudaStream_t stream) {
+  const dim3 grid((a.n + kWarps - 1) / kWarps), block(kWarps * 32);
+  switch (cpl) {
+    case 1:
+      attend_parts_kernel<XT, 1, MODE><<<grid, block, 0, stream>>>(a);
+      break;
+    case 2:
+      attend_parts_kernel<XT, 2, MODE><<<grid, block, 0, stream>>>(a);
+      break;
+    case 4:
+      attend_parts_kernel<XT, 4, MODE><<<grid, block, 0, stream>>>(a);
+      break;
+    case 8:
+      attend_parts_kernel<XT, 8, MODE><<<grid, block, 0, stream>>>(a);
+      break;
+    case 16:
+      attend_parts_kernel<XT, 16, MODE><<<grid, block, 0, stream>>>(a);
+      break;
+    case 32:
+      attend_parts_kernel<XT, 32, MODE><<<grid, block, 0, stream>>>(a);
+      break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <int MODE>
+int launch(const PartsArgs& a, int x_bf16, int cpl, void* stream) {
+  if (a.n <= 0) return 0;
+  if (!layout_ok(a.heads, a.feat, cpl))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(x_bf16 ? launch_typed<__nv_bfloat16, MODE>(a, cpl, s)
+                                 : launch_typed<float, MODE>(a, cpl, s));
+}
+
+// The fields every entry sets the same way.
+PartsArgs common_args(const void* x, const void* fs, const void* fd,
+                      const void* m, int n, int heads, int feat,
+                      int tile_bf16, float slope, float inv_keep,
+                      unsigned thresh, int dropping) {
+  PartsArgs a{};
+  a.x = x;
+  a.fs = static_cast<const float*>(fs);
+  a.fd = static_cast<const float*>(fd);
+  a.m = static_cast<const float*>(m);
+  a.n = n;
+  a.heads = heads;
+  a.feat = feat;
+  a.tile_bf16 = tile_bf16;
+  a.dropping = dropping;
+  a.slope = slope;
+  a.inv_keep = inv_keep;
+  a.thresh = thresh;
+  return a;
+}
+
+}  // namespace
+}  // namespace gnn_attend
+
+// The trailing scalars of every entry: x_bf16 / tile_bf16: 0 = float32,
+// 1 = bfloat16; cpl: columns per lane, one of 1, 2, 4, 8, 16, 32, with
+// cpl * (lanes per head) >= feat; heads <= 32. keep_mul (K8) and bits (K9,
+// K10) are read only when dropping. Each returns the launch's cudaError_t.
+
+extern "C" int gnn_rem_attend(
+    const void* x, const void* fs, const void* fd, const void* m,
+    const void* rem_senders, const void* rem_row_ptr, const void* rem_w,
+    const void* keep_mul, void* num, void* den,
+    int n, int heads, int feat, int x_bf16, int tile_bf16, int cpl,
+    float slope, float inv_keep, unsigned thresh, int dropping,
+    void* stream) {
+  using namespace gnn_attend;
+  PartsArgs a = common_args(x, fs, fd, m, n, heads, feat, tile_bf16, slope,
+                            inv_keep, thresh, dropping);
+  a.rem_senders = static_cast<const int*>(rem_senders);
+  a.rem_row_ptr = static_cast<const int*>(rem_row_ptr);
+  a.rem_w = static_cast<const float*>(rem_w);
+  a.keep_mul = static_cast<const float*>(keep_mul);
+  a.num = static_cast<float*>(num);
+  a.den = static_cast<float*>(den);
+  return launch<kRem>(a, x_bf16, cpl, stream);
+}
+
+extern "C" int gnn_tile_parts(
+    const void* x, const void* fs, const void* fd, const void* m,
+    const void* tiles, const void* bits, const void* col_ids,
+    const void* tile_off, const void* tile_cnt, void* num, void* den,
+    int n, int heads, int feat, int x_bf16, int tile_bf16, int cpl,
+    float slope, float inv_keep, unsigned thresh, int dropping,
+    void* stream) {
+  using namespace gnn_attend;
+  PartsArgs a = common_args(x, fs, fd, m, n, heads, feat, tile_bf16, slope,
+                            inv_keep, thresh, dropping);
+  a.tiles = tiles;
+  a.bits = static_cast<const int*>(bits);
+  a.col_ids = static_cast<const int*>(col_ids);
+  a.tile_off = static_cast<const int*>(tile_off);
+  a.tile_cnt = static_cast<const int*>(tile_cnt);
+  a.num = static_cast<float*>(num);
+  a.den = static_cast<float*>(den);
+  return launch<kTiles>(a, x_bf16, cpl, stream);
+}
+
+extern "C" int gnn_attend_fused(
+    const void* x, const void* fs, const void* fd, const void* m,
+    const void* tiles, const void* bits, const void* col_ids,
+    const void* tile_off, const void* tile_cnt, const void* num_init,
+    const void* den_init, void* out, void* den,
+    int n, int heads, int feat, int x_bf16, int tile_bf16, int cpl,
+    float slope, float inv_keep, unsigned thresh, int dropping,
+    void* stream) {
+  using namespace gnn_attend;
+  PartsArgs a = common_args(x, fs, fd, m, n, heads, feat, tile_bf16, slope,
+                            inv_keep, thresh, dropping);
+  a.tiles = tiles;
+  a.bits = static_cast<const int*>(bits);
+  a.col_ids = static_cast<const int*>(col_ids);
+  a.tile_off = static_cast<const int*>(tile_off);
+  a.tile_cnt = static_cast<const int*>(tile_cnt);
+  a.num_init = static_cast<const float*>(num_init);
+  a.den_init = static_cast<const float*>(den_init);
+  a.num = static_cast<float*>(out);
+  a.den = static_cast<float*>(den);
+  return launch<kFused>(a, x_bf16, cpl, stream);
+}

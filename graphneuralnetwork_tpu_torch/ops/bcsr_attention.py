@@ -18,6 +18,17 @@ weights), without any per-edge [E, H, F] tensor:
     receiver rows and K6 for ``dx`` and ``d f_src`` over the sender rows of
     the transpose layout.
 
+``gat_tiled_attend_parts`` computes the same function as the JAX package's
+three-pass attend (its path off the TPU): the exact shift ``m`` from the
+neighbour max of ``f_src`` (K7 on the tiles, K2 on the remainder), the
+remainder's softmax partials (K8), then the tile pass seeded with them and
+divided in-register (K10); K9 is the tile pass alone. Their gradients are
+those of the plain formulation, recomputed in chunks of edges, as the JAX
+package differentiates its XLA formulation; it has no backward kernel for
+them. ``gat_tiled_attend`` and ``GATConv`` stay on K4-K6, as the JAX
+package's TPU path does; the three-pass attend is reached by direct calls
+and by ``tools/profile_attend.py``.
+
 Attention dropout masks the numerator only, which is the same as dropping
 the normalised weights. Tile slots draw their mask from one uint32 word per
 slot (``bits`` [T, 128, 128], hashed per head by
@@ -36,9 +47,12 @@ import torch
 from ..core.bcsr import COL_BLOCK, ROW_BLOCK, BCSRGraph, HybridGraph
 from ..core.graph import Graph
 from .cuda.attend_bwd_kernel import attend_bwd_a, attend_bwd_b
-from .cuda.attend_common import NEG
+from .cuda.attend_common import (NEG, edge_chunks, leaky, rem_edges,
+                                 softmax_weights, tile_edges)
 from .cuda.attend_online_kernel import attend_online
+from .cuda.attend_parts_kernel import attend_fused, tile_parts
 from .cuda.neighbor_max_kernel import neighbor_max
+from .cuda.rem_attend_kernel import rem_attend
 from .cuda.segment_max_kernel import segment_max
 
 
@@ -107,6 +121,17 @@ def draw_dropout(hg: HybridGraph, heads: int, keep_prob: float,
     return bits, keep.float() / keep_prob
 
 
+def _dropout_operands(hg, heads, attn_dropout, generator, bits, keep_mul):
+    """``(keep_prob, bits, keep_mul)``: the masks as given, or drawn from
+    ``generator`` where either is missing; none without dropout."""
+    if attn_dropout <= 0.0:
+        return 1.0, None, None
+    keep_prob = 1.0 - attn_dropout
+    if bits is None or keep_mul is None:
+        bits, keep_mul = draw_dropout(hg, heads, keep_prob, generator)
+    return keep_prob, bits, keep_mul
+
+
 def gat_tiled_attend(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
                      f_dst: torch.Tensor, *, negative_slope: float = 0.2,
                      attn_dropout: float = 0.0,
@@ -125,16 +150,157 @@ def gat_tiled_attend(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
     n, heads, feat = x.shape
     fs32 = f_src.float().contiguous()
     fd32 = f_dst.float().contiguous()
-    if attn_dropout > 0.0:
-        keep_prob = 1.0 - attn_dropout
-        if bits is None or keep_mul is None:
-            bits, keep_mul = draw_dropout(hg, heads, keep_prob, generator)
-    else:
-        keep_prob, bits, keep_mul = 1.0, None, None
+    keep_prob, bits, keep_mul = _dropout_operands(hg, heads, attn_dropout,
+                                                  generator, bits, keep_mul)
     out = _AttendOnline.apply(x.reshape(n, heads * feat).contiguous(), fs32,
                               fd32, hg, bits, keep_mul,
                               float(negative_slope), float(keep_prob))
     return out.view(n, heads, feat)
+
+
+# ---------------------------------------------------------------------------
+# three-pass attend: shift, remainder partials (K8), seeded tile pass (K10)
+# ---------------------------------------------------------------------------
+
+
+def _parts_grad(edges, x, f_src, f_dst, m, g_num, g_den, slope):
+    """``(dx, d f_src, d f_dst)`` of ``sum(g_num * num) + sum(g_den * den)``
+    for the softmax partials over ``edges`` = (receivers, senders, weights,
+    keep or None), with ``m`` a constant: autograd of the plain formulation
+    (``attend_common.softmax_parts``), one chunk of edges at a time
+    (``edge_chunks``). Each chunk's loss is formed from its own edges'
+    terms, ``g_num[r] * p * keep * x[s]`` and ``g_den[r] * p``, so no
+    temporary is larger than the chunk. Float32 throughout; ``dx`` in
+    ``x``'s type."""
+    recv, send, w, keep = edges
+    n, hf = x.shape
+    heads = f_src.shape[1]
+    xs, fs, fd = (a.detach().float().requires_grad_()
+                  for a in (x, f_src, f_dst))
+    g_num = g_num.float().reshape(n, heads, -1)
+    g_den = g_den.float()
+    grads = [torch.zeros_like(a) for a in (xs, fs, fd)]
+    with torch.enable_grad():
+        for sl in edge_chunks(recv.shape[0], hf):
+            r, s = recv[sl], send[sl]
+            p = softmax_weights(r, s, w[sl], fs, fd, m, slope)
+            pn = p if keep is None else p * keep[sl]
+            vals = pn[:, :, None] * xs[s].view(-1, heads, hf // heads)
+            loss = (g_num[r] * vals).sum() + (g_den[r] * p).sum()
+            for acc, g in zip(grads, torch.autograd.grad(loss, (xs, fs, fd))):
+                acc += g
+    dx, dfs, dfd = grads
+    return dx.to(x.dtype), dfs, dfd
+
+
+class _RemParts(torch.autograd.Function):
+    """``(num, den)`` of the remainder (K8) with the plain formulation's
+    gradient; ``m`` and ``keep_mul`` carry none."""
+
+    @staticmethod
+    def forward(ctx, x, f_src, f_dst, m, hg, keep_mul, slope):
+        num, den = rem_attend(hg, x, f_src, f_dst, m, keep_mul, slope)
+        ctx.save_for_backward(x, f_src, f_dst, m, keep_mul)
+        ctx.hg, ctx.slope = hg, slope
+        return num, den
+
+    @staticmethod
+    def backward(ctx, g_num, g_den):
+        x, f_src, f_dst, m, keep_mul = ctx.saved_tensors
+        dx, dfs, dfd = _parts_grad(rem_edges(ctx.hg, keep_mul), x, f_src,
+                                   f_dst, m, g_num, g_den, ctx.slope)
+        return dx, dfs, dfd, None, None, None, None
+
+
+class _TileParts(torch.autograd.Function):
+    """``(num, den)`` of the tiles (K9) with the plain formulation's
+    gradient; ``m`` and ``bits`` carry none."""
+
+    @staticmethod
+    def forward(ctx, x, f_src, f_dst, m, hg, bits, slope, keep_prob):
+        num, den = tile_parts(hg, x, f_src, f_dst, m, bits, slope, keep_prob)
+        ctx.save_for_backward(x, f_src, f_dst, m, bits)
+        ctx.hg, ctx.slope, ctx.keep_prob = hg, slope, keep_prob
+        return num, den
+
+    @staticmethod
+    def backward(ctx, g_num, g_den):
+        x, f_src, f_dst, m, bits = ctx.saved_tensors
+        edges = tile_edges(ctx.hg, bits, f_src.shape[1], ctx.keep_prob)
+        dx, dfs, dfd = _parts_grad(edges, x, f_src, f_dst, m, g_num, g_den,
+                                   ctx.slope)
+        return dx, dfs, dfd, None, None, None, None, None
+
+
+class _AttendFused(torch.autograd.Function):
+    """``(out, den)`` of the tile pass seeded with ``num_init``/``den_init``
+    (K10). ``out = num / max(den, 1e-16)`` gives ``d num = g / den_c`` and
+    ``d den = g_den - sum_f g * out / den_c``; both flow into the tile
+    partials' gradient and, unchanged, back to ``num_init`` and
+    ``den_init`` (the remainder's partials)."""
+
+    @staticmethod
+    def forward(ctx, x, f_src, f_dst, m, num_init, den_init, hg, bits, slope,
+                keep_prob):
+        out, den = attend_fused(hg, x, f_src, f_dst, m, num_init, den_init,
+                                bits, slope, keep_prob)
+        ctx.save_for_backward(x, f_src, f_dst, m, out, den, bits)
+        ctx.hg, ctx.slope, ctx.keep_prob = hg, slope, keep_prob
+        return out, den
+
+    @staticmethod
+    def backward(ctx, g_out, g_den):
+        x, f_src, f_dst, m, out, den, bits = ctx.saved_tensors
+        n, hf = out.shape
+        heads = den.shape[1]
+        den_c = torch.clamp_min(den, 1e-16)
+        g3 = g_out.float().reshape(n, heads, hf // heads)
+        gn = g3 / den_c[:, :, None]
+        gd = g_den.float() - (g3 * out.view_as(g3)).sum(-1) / den_c
+        gn = gn.reshape(n, hf)
+        edges = tile_edges(ctx.hg, bits, heads, ctx.keep_prob)
+        dx, dfs, dfd = _parts_grad(edges, x, f_src, f_dst, m, gn, gd,
+                                   ctx.slope)
+        return dx, dfs, dfd, None, gn, gd, None, None, None, None
+
+
+def three_pass_shift(hg: HybridGraph, f_src: torch.Tensor,
+                     f_dst: torch.Tensor, slope: float) -> torch.Tensor:
+    """The three-pass attend's exact softmax shift, float32 [N, H], no
+    gradient: ``m = LeakyReLU(f_dst + nmax)`` with ``nmax`` the max of
+    ``f_src`` over each node's in-neighbours (K7 on the tiles, K2 on the
+    remainder; LeakyReLU is monotone), and 0 where a node has none."""
+    fs32 = f_src.detach().float().contiguous()
+    nmax = torch.maximum(bcsr_neighbor_max(hg.bcsr, fs32),
+                         _rem_segment_max(hg.rem, fs32[hg.rem.senders]))
+    return torch.where(nmax > NEG / 2,
+                       leaky(f_dst.detach().float() + nmax, slope), 0.0)
+
+
+def gat_tiled_attend_parts(hg: HybridGraph, x: torch.Tensor,
+                           f_src: torch.Tensor, f_dst: torch.Tensor, *,
+                           negative_slope: float = 0.2,
+                           attn_dropout: float = 0.0,
+                           generator: Optional[torch.Generator] = None,
+                           bits: Optional[torch.Tensor] = None,
+                           keep_mul: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """``gat_tiled_attend`` by the three-pass route: the shift
+    (``three_pass_shift``: K7 and K2), the remainder's partials (K8), then
+    the tile pass seeded with them (K10). The same arguments and result;
+    the gradient is the plain formulation's."""
+    n, heads, feat = x.shape
+    slope = float(negative_slope)
+    fs32 = f_src.float().contiguous()
+    fd32 = f_dst.float().contiguous()
+    keep_prob, bits, keep_mul = _dropout_operands(hg, heads, attn_dropout,
+                                                  generator, bits, keep_mul)
+    m = three_pass_shift(hg, fs32, fd32, slope)
+    x2 = x.reshape(n, heads * feat).contiguous()
+    num_r, den_r = _RemParts.apply(x2, fs32, fd32, m, hg, keep_mul, slope)
+    out, _ = _AttendFused.apply(x2, fs32, fd32, m, num_r, den_r, hg, bits,
+                                slope, float(keep_prob))
+    return out.view(n, heads, feat).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
-"""What the hybrid attend kernels K4-K6 and their plain versions share.
+"""What the hybrid attend kernels K4-K6 and K8-K10 and their plain versions
+share.
 
 The dropout hash (``head_keep``) and its constants, the edge lists that the
-plain versions build from the hybrid layout, and the checks and launch
-arguments of the three wrappers. Pure PyTorch: nothing here builds or
-loads a kernel.
+plain versions build from the hybrid layout, the softmax partials over such
+a list (``softmax_parts``), and the checks and launch arguments of the
+wrappers. Pure PyTorch: nothing here builds or loads a kernel.
 """
 
 from __future__ import annotations
@@ -90,6 +91,61 @@ def edge_chunks(n_edges: int, width: int) -> Iterator[slice]:
         yield slice(lo, min(lo + step, n_edges))
 
 
+def tile_edges(hg: HybridGraph, bits: Optional[torch.Tensor], heads: int,
+               keep_prob: float):
+    """The forward tiles' nonzero slots as an edge list: (receivers,
+    senders, weights, numerator multiplier [E, H] or None)."""
+    t, i, j, recv, send, w = tile_slots(hg.bcsr)
+    keep = (keep_factors(bits[t, i, j], heads, keep_prob)
+            if keep_prob < 1.0 else None)
+    return recv, send, w, keep
+
+
+def rem_edges(hg: HybridGraph, keep_mul: Optional[torch.Tensor]):
+    """The remainder's real edges: (receivers, senders, weights, numerator
+    multiplier [E, H] or None)."""
+    rem = hg.rem
+    e = rem.n_edges
+    return (rem.receivers[:e].long(), rem.senders[:e].long(),
+            rem.edge_weight[:e], None if keep_mul is None else keep_mul[:e])
+
+
+def softmax_weights(recv: torch.Tensor, send: torch.Tensor, w: torch.Tensor,
+                    f_src: torch.Tensor, f_dst: torch.Tensor, m: torch.Tensor,
+                    slope: float) -> torch.Tensor:
+    """``p = w * exp(min(LeakyReLU(f_dst[r] + f_src[s]) - m[r], 0))`` per
+    edge ``s -> r`` and head, [E, H]."""
+    score = leaky(f_dst[recv] + f_src[send], slope)
+    return w[:, None] * torch.exp(torch.clamp_max(score - m[recv], 0.0))
+
+
+def softmax_parts(recv: torch.Tensor, send: torch.Tensor, w: torch.Tensor,
+                  keep: Optional[torch.Tensor], x: torch.Tensor,
+                  f_src: torch.Tensor, f_dst: torch.Tensor, m: torch.Tensor,
+                  slope: float, num: Optional[torch.Tensor] = None,
+                  den: Optional[torch.Tensor] = None):
+    """The softmax partials over the edges ``send -> recv`` given the shift
+    ``m``: ``p = w * exp(min(LeakyReLU(f_dst[r] + f_src[s]) - m[r], 0))``,
+    ``den[r] += p`` and ``num[r] += p * keep * x[s]``, in float32, the
+    per-edge rows in chunks. ``num`` [N, H, F] and ``den`` [N, H] start
+    from zero unless given (then they are added to in place)."""
+    n, hf = x.shape
+    heads = f_src.shape[1]
+    feat = hf // heads
+    if num is None:
+        num = torch.zeros(n, heads, feat, dtype=torch.float32,
+                          device=x.device)
+    if den is None:
+        den = torch.zeros(n, heads, dtype=torch.float32, device=x.device)
+    p = softmax_weights(recv, send, w, f_src, f_dst, m, slope)
+    den.index_add_(0, recv, p)
+    pn = p if keep is None else p * keep
+    for sl in edge_chunks(recv.shape[0], hf):
+        vals = pn[sl, :, None] * x[send[sl]].float().view(-1, heads, feat)
+        num.index_add_(0, recv[sl], vals)
+    return num, den
+
+
 def columns_per_lane(heads: int, feat: int) -> int:
     """Feature columns per lane: a warp gives each head 32 / Hp lanes (Hp
     the head count rounded up to a power of two), which share its
@@ -105,8 +161,11 @@ def columns_per_lane(heads: int, feat: int) -> int:
 def check_operands(name: str, hg: HybridGraph, x: torch.Tensor,
                    heads: int, bits: Optional[torch.Tensor],
                    keep_mul: Optional[torch.Tensor], dropping: bool,
+                   masks: tuple[str, ...] = ("bits", "keep_mul"),
                    **node_arrays: torch.Tensor) -> None:
-    """Raise on what the CUDA kernels do not take."""
+    """Raise on what the CUDA kernels do not take. Under dropout the
+    kernel reads the masks named in ``masks``: the tiles' lattice
+    (``bits``), the remainder's multiplier (``keep_mul``) or both."""
     n = hg.n_nodes
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: x dtype {x.dtype} is not float32 or "
@@ -130,14 +189,19 @@ def check_operands(name: str, hg: HybridGraph, x: torch.Tensor,
     for bg in (hg.bcsr, hg.bcsr_t):
         if bg.tiles.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"{name}: tile dtype {bg.tiles.dtype}")
-    if dropping:
-        if bits is None or keep_mul is None:
-            raise ValueError(f"{name}: dropout needs bits and keep_mul")
+    if not dropping:
+        return
+    if "bits" in masks:
+        if bits is None:
+            raise ValueError(f"{name}: dropout needs bits")
         if (bits.dtype != torch.int32 or bits.device != x.device
                 or bits.shape != hg.bcsr.tiles.shape
                 or not bits.is_contiguous()):
             raise ValueError(f"{name}: bits must be a contiguous int32 "
                              f"{tuple(hg.bcsr.tiles.shape)} tensor")
+    if "keep_mul" in masks:
+        if keep_mul is None:
+            raise ValueError(f"{name}: dropout needs keep_mul")
         if (keep_mul.dtype != torch.float32 or keep_mul.device != x.device
                 or keep_mul.shape != (hg.rem.n_edge_pad, heads)
                 or not keep_mul.is_contiguous()):

@@ -34,9 +34,9 @@ from typing import Optional
 import torch
 
 from ...core.bcsr import HybridGraph
-from .attend_common import (NEG, SCALAR_ARGTYPES, check_operands,
-                            edge_chunks, keep_factors, leaky, ptr,
-                            scalar_args, tile_slots)
+from .attend_common import (NEG, SCALAR_ARGTYPES, check_operands, leaky,
+                            ptr, rem_edges, scalar_args, softmax_parts,
+                            tile_edges)
 from .build import check, load
 
 
@@ -45,18 +45,15 @@ def forward_edges(hg: HybridGraph, bits: Optional[torch.Tensor],
                   keep_prob: float):
     """The forward layout as one edge list: (receivers, senders, weights,
     live mask, numerator multiplier [E, H] or None), tile slots first."""
-    rem = hg.rem
-    t, i, j, t_recv, t_send, t_w = tile_slots(hg.bcsr)
-    e = rem.n_edges
-    r_w = rem.edge_weight[:e]
-    recv = torch.cat([t_recv, rem.receivers[:e].long()])
-    send = torch.cat([t_send, rem.senders[:e].long()])
+    dropping = keep_prob < 1.0
+    t_recv, t_send, t_w, t_keep = tile_edges(hg, bits, heads, keep_prob)
+    r_recv, r_send, r_w, r_keep = rem_edges(hg,
+                                            keep_mul if dropping else None)
+    recv = torch.cat([t_recv, r_recv])
+    send = torch.cat([t_send, r_send])
     w = torch.cat([t_w, r_w])
     live = torch.cat([t_w != 0, r_w > 0])
-    keep = None
-    if keep_prob < 1.0:
-        keep = torch.cat([keep_factors(bits[t, i, j], heads, keep_prob),
-                          keep_mul[:e]])
+    keep = torch.cat([t_keep, r_keep]) if dropping else None
     return recv, send, w, live, keep
 
 
@@ -68,28 +65,18 @@ def attend_online_plain(hg: HybridGraph, x: torch.Tensor,
     """The plain PyTorch version: the exact shift first (LeakyReLU is
     monotone, so m = LeakyReLU(f_dst + neighbour max of f_src)), then the
     numerator and denominator of all tile slots and remainder edges in one
-    pass, in float32, the per-edge rows in chunks."""
+    pass (``softmax_parts``), in float32, the per-edge rows in chunks."""
     n, hf = x.shape
     heads = f_src.shape[1]
-    feat = hf // heads
     recv, send, w, live, keep = forward_edges(hg, bits, keep_mul, heads,
                                               keep_prob)
-    fs_e = f_src[send]
     idx = recv[:, None].expand(-1, heads)
     maxfs = torch.full((n, heads), NEG, dtype=torch.float32,
                        device=x.device).scatter_reduce_(
-        0, idx, torch.where(live[:, None], fs_e, NEG), "amax",
+        0, idx, torch.where(live[:, None], f_src[send], NEG), "amax",
         include_self=True)
     m = torch.where(maxfs > NEG / 2, leaky(f_dst + maxfs, slope), NEG)
-    score = leaky(f_dst[recv] + fs_e, slope)
-    p = w[:, None] * torch.exp(torch.clamp_max(score - m[recv], 0.0))
-    den = torch.zeros(n, heads, dtype=torch.float32,
-                      device=x.device).index_add_(0, recv, p)
-    pn = p if keep is None else p * keep
-    num = torch.zeros(n, heads, feat, dtype=torch.float32, device=x.device)
-    for sl in edge_chunks(recv.shape[0], hf):
-        vals = pn[sl, :, None] * x[send[sl]].float().view(-1, heads, feat)
-        num.index_add_(0, recv[sl], vals)
+    num, den = softmax_parts(recv, send, w, keep, x, f_src, f_dst, m, slope)
     out = num / torch.clamp_min(den, 1e-16)[:, :, None]
     return out.reshape(n, hf).to(x.dtype), den, m
 

@@ -1,0 +1,163 @@
+"""K9 and K10: the dense tiles' softmax partials, given the shift
+(``csrc/attend_parts_kernel.cu``, entries ``gnn_tile_parts`` and
+``gnn_attend_fused``).
+
+For every receiver r and head h over the nonzero slots s -> r of the
+forward tiles of the hybrid graph ``hg``, with the shift ``m`` given:
+
+    p   = w * exp(min(LeakyReLU(f_dst[r,h] + f_src[s,h]) - m[r,h], 0))
+    den = sum p;   num = sum p * keep * x[s,h,:]
+
+(``w`` the tile count; ``keep`` is 1, or under attention dropout
+``head_keep(bits[t,i,j], h) / keep_prob`` from the tiles' uint32 lattice
+``bits``, int32 [T, 128, 128]).
+
+  * ``tile_parts(hg, x, f_src, f_dst, m, bits, slope, keep_prob)`` (K9)
+    returns ``(num, den)``, float32 [N, H*F] and [N, H], zero on rows
+    without tile slots;
+  * ``attend_fused(hg, x, f_src, f_dst, m, num_init, den_init, bits, slope,
+    keep_prob)`` (K10) starts the sums from ``num_init`` [N, H*F] and
+    ``den_init`` [N, H] (float32: the remainder's partials) and returns
+    ``(out, den)``: ``out = num / max(den, 1e-16)`` in float32 and the raw
+    ``den``. Every row is written, also rows whose row block has no tile.
+
+They replace the TPU kernels ``_attend_kernel`` (``_parts_pallas``) and
+``_attend_fused_kernel`` (``_fused_pallas``) of
+``graphneuralnetwork_tpu/ops/bcsr_attention.py``; the design note is in the
+CUDA source. A CUDA tensor launches the kernel; a CPU tensor takes
+``tile_parts_plain`` / ``attend_fused_plain``. ``tile_parts.launches`` and
+``attend_fused.launches`` count launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ...core.bcsr import HybridGraph
+from .attend_common import (SCALAR_ARGTYPES, check_operands, ptr,
+                            scalar_args, softmax_parts, tile_edges)
+from .build import check, load
+
+#: the three entries of the one library, declared at its first load
+PARTS_ENTRIES = {
+    "gnn_rem_attend": [ctypes.c_void_p] * 10 + SCALAR_ARGTYPES,
+    "gnn_tile_parts": [ctypes.c_void_p] * 11 + SCALAR_ARGTYPES,
+    "gnn_attend_fused": [ctypes.c_void_p] * 13 + SCALAR_ARGTYPES,
+}
+
+
+def tile_parts_plain(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
+                     f_dst: torch.Tensor, m: torch.Tensor,
+                     bits: Optional[torch.Tensor], slope: float,
+                     keep_prob: float,
+                     num_init: Optional[torch.Tensor] = None,
+                     den_init: Optional[torch.Tensor] = None):
+    """The plain PyTorch version: ``softmax_parts`` over the tiles'
+    nonzero slots, the tile half of ``attend_online_plain``'s second pass,
+    started from ``num_init``/``den_init`` where given."""
+    n, hf = x.shape
+    heads = f_src.shape[1]
+    recv, send, w, keep = tile_edges(hg, bits, heads, keep_prob)
+    num = den = None
+    if num_init is not None:
+        num = num_init.float().reshape(n, heads, hf // heads).clone()
+        den = den_init.float().clone()
+    num, den = softmax_parts(recv, send, w, keep, x, f_src, f_dst, m, slope,
+                             num, den)
+    return num.reshape(n, hf), den
+
+
+def attend_fused_plain(hg: HybridGraph, x: torch.Tensor,
+                       f_src: torch.Tensor, f_dst: torch.Tensor,
+                       m: torch.Tensor, num_init: torch.Tensor,
+                       den_init: torch.Tensor, bits: Optional[torch.Tensor],
+                       slope: float, keep_prob: float):
+    """The plain PyTorch version: the tile partials started from the
+    remainder's, then the division; ``den`` is returned unclamped."""
+    heads = f_src.shape[1]
+    num, den = tile_parts_plain(hg, x, f_src, f_dst, m, bits, slope,
+                                keep_prob, num_init, den_init)
+    out = num.view(x.shape[0], heads, -1) / torch.clamp_min(
+        den, 1e-16)[:, :, None]
+    return out.reshape(num.shape), den
+
+
+def _prepare(name, hg, x, f_src, bits, keep_prob, **node_arrays):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    heads = f_src.shape[1]
+    dropping = keep_prob < 1.0
+    check_operands(name, hg, x, heads, bits, None, dropping,
+                   masks=("bits",), f_src=f_src, **node_arrays)
+    for key in ("num_init", "den_init"):
+        arr = node_arrays.get(key)
+        width = heads if key == "den_init" else x.shape[1]
+        if arr is not None and arr.shape != (x.shape[0], width):
+            raise ValueError(f"{name}: {key} must be [{x.shape[0]}, "
+                             f"{width}], got {tuple(arr.shape)}")
+    return heads, dropping
+
+
+def tile_parts(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
+               f_dst: torch.Tensor, m: torch.Tensor,
+               bits: Optional[torch.Tensor], slope: float, keep_prob: float):
+    if x.device.type == "cpu":
+        return tile_parts_plain(hg, x, f_src, f_dst, m, bits, slope,
+                                keep_prob)
+    heads, dropping = _prepare("tile_parts", hg, x, f_src, bits, keep_prob,
+                               f_dst=f_dst, m=m)
+    n, hf = x.shape
+    num = torch.empty(n, hf, dtype=torch.float32, device=x.device)
+    den = torch.empty(n, heads, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return num, den
+    bg = hg.bcsr
+    lib = load("attend_parts_kernel", PARTS_ENTRIES)
+    with torch.cuda.device(x.device):
+        err = lib.gnn_tile_parts(
+            x.data_ptr(), f_src.data_ptr(), f_dst.data_ptr(), m.data_ptr(),
+            bg.tiles.data_ptr(), ptr(bits), bg.col_ids.data_ptr(),
+            bg.tile_off.data_ptr(), bg.tile_cnt.data_ptr(), num.data_ptr(),
+            den.data_ptr(),
+            *scalar_args(x, bg.tiles, heads, slope, keep_prob, dropping))
+    check(lib, err, "tile_parts kernel launch")
+    tile_parts.launches += 1
+    return num, den
+
+
+def attend_fused(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
+                 f_dst: torch.Tensor, m: torch.Tensor,
+                 num_init: torch.Tensor, den_init: torch.Tensor,
+                 bits: Optional[torch.Tensor], slope: float,
+                 keep_prob: float):
+    if x.device.type == "cpu":
+        return attend_fused_plain(hg, x, f_src, f_dst, m, num_init,
+                                  den_init, bits, slope, keep_prob)
+    heads, dropping = _prepare("attend_fused", hg, x, f_src, bits,
+                               keep_prob, f_dst=f_dst, m=m,
+                               num_init=num_init, den_init=den_init)
+    n, hf = x.shape
+    out = torch.empty(n, hf, dtype=torch.float32, device=x.device)
+    den = torch.empty(n, heads, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out, den
+    bg = hg.bcsr
+    lib = load("attend_parts_kernel", PARTS_ENTRIES)
+    with torch.cuda.device(x.device):
+        err = lib.gnn_attend_fused(
+            x.data_ptr(), f_src.data_ptr(), f_dst.data_ptr(), m.data_ptr(),
+            bg.tiles.data_ptr(), ptr(bits), bg.col_ids.data_ptr(),
+            bg.tile_off.data_ptr(), bg.tile_cnt.data_ptr(),
+            num_init.data_ptr(), den_init.data_ptr(), out.data_ptr(),
+            den.data_ptr(),
+            *scalar_args(x, bg.tiles, heads, slope, keep_prob, dropping))
+    check(lib, err, "attend_fused kernel launch")
+    attend_fused.launches += 1
+    return out, den
+
+
+tile_parts.launches = 0
+attend_fused.launches = 0

@@ -1,0 +1,81 @@
+"""K8: the COO remainder's softmax partials, given the shift
+(``csrc/attend_parts_kernel.cu``, entry ``gnn_rem_attend``).
+
+``rem_attend(hg, x, f_src, f_dst, m, keep_mul, slope)`` computes, for every
+receiver r and head h over the real remainder edges s -> r of the hybrid
+graph ``hg``:
+
+    p   = w * exp(min(LeakyReLU(f_dst[r,h] + f_src[s,h]) - m[r,h], 0))
+    den = sum p;   num = sum p * keep_mul[e,h] * x[s,h,:]
+
+with ``x`` [N, H*F] (float32 or bfloat16), ``f_src``, ``f_dst`` and ``m``
+float32 [N, H], ``w`` the remainder's edge weights and ``keep_mul``
+(float32 [E_pad, H], attention dropout's numerator multiplier) or None.
+Returns ``(num, den)``: float32 [N, H*F] and [N, H], zero on rows without
+remainder edges. The exponent is clamped at 0 whatever ``m`` is: with the
+exact shift the clamp never bites, with a stand-in (``m = 0``) it caps
+every term at ``w``.
+
+It replaces the TPU kernel ``_rem_attend_kernel`` of
+``graphneuralnetwork_tpu/ops/pallas/rem_attend_kernel.py``
+(``rem_attend_pallas``); the design note is in the CUDA source. A CUDA
+tensor launches the kernel; a CPU tensor takes ``rem_attend_plain``.
+``rem_attend.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ...core.bcsr import HybridGraph
+from .attend_common import (check_operands, ptr, rem_edges, scalar_args,
+                            softmax_parts)
+from .attend_parts_kernel import PARTS_ENTRIES
+from .build import check, load
+
+
+def rem_attend_plain(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
+                     f_dst: torch.Tensor, m: torch.Tensor,
+                     keep_mul: Optional[torch.Tensor], slope: float):
+    """The plain PyTorch version: ``softmax_parts`` over the remainder's
+    real edges, the remainder half of ``attend_online_plain``'s second
+    pass."""
+    n, hf = x.shape
+    recv, send, w, keep = rem_edges(hg, keep_mul)
+    num, den = softmax_parts(recv, send, w, keep, x, f_src, f_dst, m, slope)
+    return num.reshape(n, hf), den
+
+
+def rem_attend(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
+               f_dst: torch.Tensor, m: torch.Tensor,
+               keep_mul: Optional[torch.Tensor], slope: float):
+    if x.device.type == "cpu":
+        return rem_attend_plain(hg, x, f_src, f_dst, m, keep_mul, slope)
+    if x.device.type != "cuda":
+        raise ValueError(f"rem_attend: unsupported device {x.device}")
+    heads = f_src.shape[1]
+    dropping = keep_mul is not None
+    check_operands("rem_attend", hg, x, heads, None, keep_mul, dropping,
+                   masks=("keep_mul",), f_src=f_src, f_dst=f_dst, m=m)
+    n, hf = x.shape
+    num = torch.empty(n, hf, dtype=torch.float32, device=x.device)
+    den = torch.empty(n, heads, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return num, den
+    rem = hg.rem
+    lib = load("attend_parts_kernel", PARTS_ENTRIES)
+    with torch.cuda.device(x.device):
+        err = lib.gnn_rem_attend(
+            x.data_ptr(), f_src.data_ptr(), f_dst.data_ptr(), m.data_ptr(),
+            rem.senders.data_ptr(), rem.row_ptr.data_ptr(),
+            rem.edge_weight.data_ptr(), ptr(keep_mul), num.data_ptr(),
+            den.data_ptr(),
+            *scalar_args(x, hg.bcsr.tiles, heads, slope, 1.0, dropping))
+    check(lib, err, "rem_attend kernel launch")
+    rem_attend.launches += 1
+    return num, den
+
+
+rem_attend.launches = 0
