@@ -22,7 +22,9 @@ Phases, each printing one JSON line:
                GCN Cora hybrid (F 128 and 7), the Pubmed SAGE hybrid (F 500,
                128 and 1) and the 2M-edge community graph's tiles and
                transpose tiles (F 128), float32 and bfloat16; K7 on the
-               Pubmed hybrid (C 500 and 128) and the community graph (128);
+               Pubmed hybrid (C 500 and 128), the community graph (128)
+               and, at the three-pass shift's 8 heads, the Cora GAT
+               hybrid and the community graph's bfloat16 tiles;
   4. path    — GCN, GAT-COO, GAT on the hybrid Cora graph (dropout off,
                then attention dropout with the same masks on both sides),
                GCN on the Cora hybrid and GraphSAGE mean and max on the
@@ -49,7 +51,9 @@ Phases, each printing one JSON line:
                epochs with the mean aggregator (K3 and K1, no K7 or K2),
                then with ``--set aggregator=max`` (K7 and K2, no K3 or K1).
 Every CLI run must reach test_acc >= 0.80 with exact launch counts.
-Then a ``kernels`` summary line and, last, ``{"ok": true, "device": ...}``.
+Then a ``previous_design`` line (every K3 and K7 case beside its previous
+design's time, recorded in ``PREVIOUS_DESIGN_MS``, not measured), a
+``kernels`` summary line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without the last line.
 """
 
@@ -79,6 +83,7 @@ from graphneuralnetwork_tpu_torch.ops.cuda import neighbor_max_kernel as k7
 from graphneuralnetwork_tpu_torch.ops.cuda import rem_attend_kernel as k8
 from graphneuralnetwork_tpu_torch.ops.cuda import segment_max_kernel as k2
 from graphneuralnetwork_tpu_torch.ops.cuda import spmm_kernel as k1
+from graphneuralnetwork_tpu_torch.ops.cuda import tile_walk
 from graphneuralnetwork_tpu_torch.ops.cuda.counters import (COUNTERS,
                                                             read_launches,
                                                             reset_launches)
@@ -104,6 +109,23 @@ LARGE_NODES, LARGE_EDGES = 65536, 2 ** 21
 #: The attend kernels' large shape: a community graph without shuffle
 #: (``bench.py``'s 2M-edge GAT shape, its locality given, not recovered).
 ATTEND_LARGE = dict(n=131072, e=2 ** 21, comm=256, heads=8, feat=128)
+#: K3's and K7's times with their previous design (a CTA per quarter row
+#: block and 32-column slab), ms ("NVIDIA H100 80GB HBM3, 700.00 W",
+#: PERF.md), keyed by (kernel, graph, x dtype, width): recorded, not
+#: measured by this script. ``previous_design`` prints them on a line of
+#: their own beside this run's times.
+PREVIOUS_DESIGN_MS = {
+    ("K3", "cora_gcn", "float32", 128): 0.00752,
+    ("K3", "cora_gcn", "float32", 7): 0.00455,
+    ("K3", "pubmed", "float32", 500): 0.03735,
+    ("K3", "pubmed", "float32", 128): 0.01135,
+    ("K3", "pubmed", "float32", 1): 0.00953,
+    ("K3", "large", "float32", 128): 0.3956,
+    ("K3", "large", "bfloat16", 128): 0.403,
+    ("K7", "pubmed", "float32", 500): 0.03732,
+    ("K7", "pubmed", "float32", 128): 0.01130,
+    ("K7", "large", "float32", 128): 0.4056,
+}
 #: Attention dropout of the GAT path (and its keep rate in the checks).
 GAT_DROPOUT = 0.6
 #: Kernel vs plain version: |kernel - plain| <= rtol * |plain| + atol * S,
@@ -596,12 +618,33 @@ def _k3_library(bg, x, ref):
     return call, float((out.float() - ref.float()).abs().max())
 
 
+def _tile_bytes(bg, x, out, values):
+    """Bytes that K3 or K7 must move on this run's data: the tiles' ids and
+    spans, the tile store where the function needs the values (K3: it holds
+    the pattern too), else the nonzero masks, the smaller copy of the
+    pattern (K7), the ``x`` rows that the nonzero slots name (once each)
+    and ``out`` once."""
+    named = int(bg.slot_edges[1].unique().numel())
+    return (_nbytes(bg.col_ids, bg.tile_off, bg.tile_cnt, out,
+                    *((bg.tiles,) if values else (bg.row_masks, bg.col_masks)))
+            + named * x.shape[1] * x.element_size())
+
+
+def _grid(bg, width, tile_size, mma):
+    """The CTA shape the wrapper launches (``tile_walk.tile_grid``)."""
+    rows, slab, ctas = tile_walk.tile_grid(
+        bg.n_node_pad // ROW_BLOCK, width,
+        tile_walk.sm_count(torch.device(DEVICE).index or 0), tile_size, mma)
+    return dict(rows=rows, slab=slab, ctas=ctas)
+
+
 def _k3_case(label, bg, f, dtype, gen, plain_reps):
     """K3 on random ``x`` [N, f] in ``dtype`` against its plain version,
-    then timed. The bound counts the tile store, the ids and spans, ``x``
-    and ``out`` once, and 2 flops per nonzero tile slot and column: the
-    work this graph needs (the dense-tile count, 2 * T * 128 * 128 * F,
-    is reported beside it)."""
+    then timed. The bound counts ``_tile_bytes`` (the tile store, not the
+    masks) and 2 flops per nonzero
+    tile slot and column: the work this graph needs (the dense-tile count,
+    2 * T * 128 * 128 * F, which bf16 ``x`` runs on the tensor cores, is
+    reported beside it)."""
     dname = str(dtype).replace("torch.", "")
     x = torch.randn(bg.n_nodes, f, device=DEVICE, generator=gen).to(dtype)
     out = k3.bcsr_spmm(bg, x)
@@ -612,7 +655,7 @@ def _k3_case(label, bg, f, dtype, gen, plain_reps):
     err, rtol, atol = _check(f"K3 {label} {dname} F={f}", out, ref, dname,
                              abs_sum)
     nnz = int(torch.count_nonzero(bg.tiles))
-    n_bytes = _nbytes(bg.tiles, bg.col_ids, bg.tile_off, bg.tile_cnt, x, out)
+    n_bytes = _tile_bytes(bg, x, out, values=True)
     peak = (PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16
             else PEAK_F32_OPS_PER_S)
     b_ms, b_by = bound(n_bytes, 2 * nnz * f, peak)
@@ -622,7 +665,9 @@ def _k3_case(label, bg, f, dtype, gen, plain_reps):
     return dict(
         kernel="K3", graph=label, dtype=dname, shape=[bg.n_nodes, f],
         tiles=bg.n_tiles, tile_dtype=str(bg.tiles.dtype).replace(
-            "torch.", ""), nonzero_slots=nnz, max_abs_err=err, rtol=rtol,
+            "torch.", ""), nonzero_slots=nnz,
+        **_grid(bg, f, bg.tiles.element_size(), dtype == torch.bfloat16),
+        max_abs_err=err, rtol=rtol,
         atol=atol, kernel_ms=time_ms(lambda: k3.bcsr_spmm(bg, x)),
         plain_ms=time_ms(lambda: k3.bcsr_spmm_plain(bg, x), *plain_reps),
         library_ms=time_ms(lib),
@@ -634,23 +679,27 @@ def _k3_case(label, bg, f, dtype, gen, plain_reps):
 
 def _k7_case(label, bg, c, gen, plain_reps):
     """K7 on random float32 ``v`` [N, c] against its plain version (exact),
-    then timed. The bound counts the tile store, the ids and spans, ``v``
-    and ``out`` once, and one comparison per nonzero tile slot and column
-    (the dense-tile count, T * 128 * 128 * C, is reported beside it)."""
+    then timed. The bound counts ``_tile_bytes`` (the masks, not the tile
+    values, which K7 never reads) and one comparison per nonzero tile slot
+    and column (the dense-tile count, T * 128 * 128 * C,
+    is reported beside it)."""
     v = torch.randn(bg.n_nodes, c, device=DEVICE, generator=gen)
     out = k7.neighbor_max(bg, v)
     ref = k7.neighbor_max_plain(bg, v)
     torch.cuda.synchronize()
-    err, rtol, atol = _check(f"K7 {label} C={c}", out, ref, "max")
+    tile_dtype = str(bg.tiles.dtype).replace("torch.", "")
+    err, rtol, atol = _check(f"K7 {label} C={c} {tile_dtype} tiles", out,
+                             ref, "max")
     nnz = int(torch.count_nonzero(bg.tiles))
-    n_bytes = _nbytes(bg.tiles, bg.col_ids, bg.tile_off, bg.tile_cnt, v, out)
+    n_bytes = _tile_bytes(bg, v, out, values=False)
     b_ms, b_by = bound(n_bytes, nnz * c)
     dense_ms, dense_by = bound(n_bytes,
                                bg.n_tiles * ROW_BLOCK * COL_BLOCK * c)
     return dict(
         kernel="K7", graph=label, dtype="float32", shape=[bg.n_nodes, c],
-        tiles=bg.n_tiles, nonzero_slots=nnz, max_abs_err=err, rtol=rtol,
-        atol=atol, kernel_ms=time_ms(lambda: k7.neighbor_max(bg, v)),
+        tiles=bg.n_tiles, tile_dtype=tile_dtype, nonzero_slots=nnz,
+        **_grid(bg, c, 0, False), max_abs_err=err, rtol=rtol, atol=atol,
+        kernel_ms=time_ms(lambda: k7.neighbor_max(bg, v)),
         plain_ms=time_ms(lambda: k7.neighbor_max_plain(bg, v), *plain_reps),
         library_ms=None,
         library="none: no single PyTorch call computes a masked block max",
@@ -658,18 +707,22 @@ def _k7_case(label, bg, c, gen, plain_reps):
         dense_tile_bound_by=dense_by, bytes=n_bytes, flops=nnz * c)
 
 
-def phase_tile_kernels(cora_gcn_hg, pubmed_hg, large) -> list[dict]:
+def phase_tile_kernels(cora_gcn_hg, cora_gat_hg, pubmed_hg,
+                       large) -> list[dict]:
     """K3 at GCN's Cora hybrid widths (128, 7) and SAGE's Pubmed widths
     (500, 128, 1), and on the large community graph's tiles and transpose
     tiles at 128, with float32 and bfloat16 ``x`` (the large graph's tiles
     in ``x``'s type, the path graphs' in float32, as the loaders build
-    them); K7 at SAGE's Pubmed widths (500, 128) and on the large tiles."""
+    them); K7 at SAGE's Pubmed widths (500, 128), on the large tiles (128)
+    and at the three-pass shift's 8 heads on the Cora GAT hybrid and the
+    large graph's bfloat16 tiles."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     emit({"phase": "kernels", "tile_graphs": {
         name: dict(nodes=bg.n_nodes, tiles=bg.n_tiles,
                    tiled_edges=bg.n_edges, max_tiles=bg.max_tiles)
         for name, bg in (("cora_gcn", cora_gcn_hg.bcsr),
+                         ("cora_gat", cora_gat_hg.bcsr),
                          ("pubmed", pubmed_hg.bcsr), ("large", large.bcsr),
                          ("large_t", large.bcsr_t))}})
     cases = []
@@ -684,9 +737,13 @@ def phase_tile_kernels(cora_gcn_hg, pubmed_hg, large) -> list[dict]:
         for label, bg, f, plain_reps in shapes:
             cases.append(_k3_case(label, bg, f, dtype, gen, plain_reps))
             emit({"phase": "kernels", **cases[-1]})
+    big_bf16 = _with_tile_dtype(large, torch.bfloat16).bcsr
     for label, bg, c, plain_reps in (("pubmed", pubmed_hg.bcsr, 500, (7, 20)),
                                      ("pubmed", pubmed_hg.bcsr, 128, (7, 20)),
-                                     ("large", large.bcsr, 128, (3, 2))):
+                                     ("large", large.bcsr, 128, (3, 2)),
+                                     ("cora_gat", cora_gat_hg.bcsr, 8,
+                                      (7, 20)),
+                                     ("large", big_bf16, 8, (3, 2))):
         cases.append(_k7_case(label, bg, c, gen, plain_reps))
         emit({"phase": "kernels", **cases[-1]})
     emit({"phase": "kernels", "tile_seconds": time.perf_counter() - t0,
@@ -990,7 +1047,30 @@ def summary(cases, launches) -> dict:
             "timed_case": f"float32 {c['shape']} on {c['graph']}"
                           + (" with dropout" if c.get("dropout") else ""),
         })
+        if kern in ("K3", "K7"):   # every case of this run
+            rows[-1]["cases"] = [
+                {"case": _tile_case(x), "ms": x["kernel_ms"],
+                 "bound_ms": x["bound_ms"]}
+                for x in cases if x["kernel"] == kern]
     return {"kernels": rows}
+
+
+def _tile_case(c) -> str:
+    return (f"{c['dtype']} {c['shape']} on {c['graph']}, {c['tile_dtype']} "
+            "tiles")
+
+
+def previous_design(cases) -> dict:
+    """Each K3/K7 case's time in this run beside its previous design's,
+    which ``PREVIOUS_DESIGN_MS`` holds as recorded, not measured here."""
+    return {"previous_design": {
+        "recorded_ms_from": "PERF.md (NVIDIA H100 80GB HBM3, 700.00 W); "
+                            "not measured in this run",
+        "cases": [
+            {"case": _tile_case(c), "ms": c["kernel_ms"],
+             "recorded_previous_design_ms": PREVIOUS_DESIGN_MS.get(
+                 (c["kernel"], c["graph"], c["dtype"], c["shape"][1]))}
+            for c in cases if c["kernel"] in ("K3", "K7")]}}
 
 
 def main() -> None:
@@ -1009,7 +1089,8 @@ def main() -> None:
     pubmed = load_pubmed_fullbatch(seed=0, layout="hybrid", device=DEVICE)
     large = _large_hybrid()
     cases = (phase_kernels(cora) + phase_attend_kernels(cora_hg, large)
-             + phase_tile_kernels(cora_g.graph, pubmed.graph, large))
+             + phase_tile_kernels(cora_g.graph, cora_hg, pubmed.graph,
+                                  large))
     del large
     phase_path(cora, cora_h, cora_hg, cora_g, pubmed)
     # the three-pass attend and its stage profiler: the only paths that
@@ -1050,6 +1131,7 @@ def main() -> None:
     runs.append(_drive("graphsage_hybrid_max",
                        sage + ["--set", "aggregator=max"],
                        {"K7": (4, 2), "K2": (4, 2)}))
+    emit(previous_design(cases))
     emit(summary(cases, {k: sum(run[k] for run in runs) for k in COUNTERS}))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -52,6 +52,14 @@ def _tensors_to(obj, device):
     return dataclasses.replace(obj, **changes)
 
 
+def _pack_bits(flags: torch.Tensor) -> torch.Tensor:
+    """int32 [..., 4]: the last axis of 128 booleans as four 32-bit words,
+    bit j of word q for entry 32 q + j."""
+    bits = flags.reshape(*flags.shape[:-1], 4, 32).long()
+    words = (bits << torch.arange(32, device=flags.device)).sum(-1)
+    return (words - (words >= 2 ** 31).long() * 2 ** 32).int()
+
+
 @dataclasses.dataclass(frozen=True)
 class BCSRGraph:
     """Row-sorted dense tiles and per-row-block tile spans."""
@@ -82,6 +90,24 @@ class BCSRGraph:
         t, i, j = torch.nonzero(self.tiles, as_tuple=True)
         return (self.row_ids[t].long() * ROW_BLOCK + i,
                 self.col_ids[t].long() * COL_BLOCK + j)
+
+    @functools.cached_property
+    def row_masks(self) -> torch.Tensor:
+        """int32 [T, ROW_BLOCK, 4]: each tile row's nonzero slots as a
+        128-bit set in four words, bit j of word q for column 32 q + j. K3
+        and K7 walk these instead of testing the tile values. Built at
+        first use and kept with the graph."""
+        return _pack_bits(self.tiles != 0)
+
+    @functools.cached_property
+    def col_masks(self) -> torch.Tensor:
+        """int32 [T, 2, 4]: the columns of each tile that each 64-row half
+        names (a nonzero slot in some row of the half), as 128-bit sets in
+        four words, bit j of word q for column 32 q + j. K3 and K7 copy
+        only those rows of ``x``. Built at first use and kept with the
+        graph."""
+        named = (self.tiles != 0).view(-1, 2, ROW_BLOCK // 2, COL_BLOCK)
+        return _pack_bits(named.any(dim=2))
 
     def to(self, device) -> "BCSRGraph":
         return _tensors_to(self, device)

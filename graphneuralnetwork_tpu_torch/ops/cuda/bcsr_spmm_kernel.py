@@ -21,6 +21,7 @@ import torch
 
 from ...core.bcsr import COL_BLOCK, ROW_BLOCK, BCSRGraph
 from .build import check, load
+from .tile_walk import launch_shape
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -43,7 +44,7 @@ def bcsr_spmm_plain(bg: BCSRGraph, x: torch.Tensor) -> torch.Tensor:
     return out.view(-1, f)[:n].to(x.dtype)
 
 
-_ENTRIES = {"gnn_bcsr_spmm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+_ENTRIES = {"gnn_bcsr_spmm": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
             + [ctypes.c_void_p]}
 
 
@@ -66,13 +67,21 @@ def bcsr_spmm(bg: BCSRGraph, x: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = load("bcsr_spmm_kernel", _ENTRIES)
+    x_bf16 = x.dtype == torch.bfloat16
+    n_rb = bg.n_node_pad // ROW_BLOCK
+    rows, slab, chunk = launch_shape(n_rb, x, bg.tiles.element_size(),
+                                     mma=x_bf16)
+    # the tensor-core product reads no masks: they are built only for the
+    # walk
+    row_masks, col_masks = ((None, None) if x_bf16 else
+                            (bg.row_masks.data_ptr(), bg.col_masks.data_ptr()))
     with torch.cuda.device(x.device):
         err = lib.gnn_bcsr_spmm(
             bg.tiles.data_ptr(), x.data_ptr(), bg.col_ids.data_ptr(),
-            bg.tile_off.data_ptr(), bg.tile_cnt.data_ptr(), out.data_ptr(),
-            bg.n_node_pad // ROW_BLOCK, x.shape[0], x.shape[1],
-            int(x.dtype == torch.bfloat16),
-            int(bg.tiles.dtype == torch.bfloat16),
+            bg.tile_off.data_ptr(), bg.tile_cnt.data_ptr(), row_masks,
+            col_masks, out.data_ptr(),
+            n_rb, x.shape[0], x.shape[1], int(x_bf16),
+            int(bg.tiles.dtype == torch.bfloat16), rows, slab, chunk,
             torch.cuda.current_stream(x.device).cuda_stream)
     check(lib, err, "bcsr_spmm kernel launch")
     bcsr_spmm.launches += 1

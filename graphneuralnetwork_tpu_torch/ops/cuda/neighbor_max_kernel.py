@@ -22,6 +22,7 @@ import torch
 from ...core.bcsr import ROW_BLOCK, BCSRGraph
 from .attend_common import NEG
 from .build import check, load
+from .tile_walk import launch_shape
 
 
 def neighbor_max_plain(bg: BCSRGraph, v: torch.Tensor) -> torch.Tensor:
@@ -36,7 +37,7 @@ def neighbor_max_plain(bg: BCSRGraph, v: torch.Tensor) -> torch.Tensor:
                                v.float()[cols], "amax", include_self=True)
 
 
-_ENTRIES = {"gnn_neighbor_max": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+_ENTRIES = {"gnn_neighbor_max": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
             + [ctypes.c_float, ctypes.c_void_p]}
 
 
@@ -61,12 +62,16 @@ def neighbor_max(bg: BCSRGraph, v: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = load("neighbor_max_kernel", _ENTRIES)
+    n_rb = bg.n_node_pad // ROW_BLOCK
+    # the walk stages the masks alone: no tile values
+    rows, slab, chunk = launch_shape(n_rb, v, 0, mma=False)
     with torch.cuda.device(v.device):
         err = lib.gnn_neighbor_max(
             bg.tiles.data_ptr(), v.data_ptr(), bg.col_ids.data_ptr(),
-            bg.tile_off.data_ptr(), bg.tile_cnt.data_ptr(), out.data_ptr(),
-            bg.n_node_pad // ROW_BLOCK, v.shape[0], v.shape[1],
-            int(bg.tiles.dtype == torch.bfloat16), NEG,
+            bg.tile_off.data_ptr(), bg.tile_cnt.data_ptr(),
+            bg.row_masks.data_ptr(), bg.col_masks.data_ptr(), out.data_ptr(),
+            n_rb, v.shape[0], v.shape[1],
+            int(bg.tiles.dtype == torch.bfloat16), rows, slab, chunk, NEG,
             torch.cuda.current_stream(v.device).cuda_stream)
     check(lib, err, "neighbor_max kernel launch")
     neighbor_max.launches += 1

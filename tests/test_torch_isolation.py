@@ -1,6 +1,6 @@
-"""The PyTorch port, chip_smoke.py and profile_torch.py stand alone:
-importing them loads neither JAX nor the JAX package, and no source of
-theirs imports either."""
+"""The PyTorch port, chip_smoke.py, profile_torch.py and soak_tiles.py stand
+alone: importing them loads neither JAX nor the JAX package, and no source
+of theirs imports either."""
 
 import ast
 import os
@@ -15,7 +15,7 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "graphneuralnetwork_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "graphneuralnetwork_tpu")
-SCRIPTS = ("chip_smoke", "profile_torch")
+SCRIPTS = ("chip_smoke", "profile_torch", "soak_tiles")
 
 
 def _port_modules():
