@@ -51,8 +51,9 @@ Phases, each printing one JSON line:
                epochs with the mean aggregator (K3 and K1, no K7 or K2),
                then with ``--set aggregator=max`` (K7 and K2, no K3 or K1).
 Every CLI run must reach test_acc >= 0.80 with exact launch counts.
-Then a ``previous_design`` line (every K3 and K7 case beside its previous
-design's time, recorded in ``PREVIOUS_DESIGN_MS``, not measured), a
+Then a ``previous_design`` line (every K3, K4, K6 and K7 case beside its
+previous design's time where ``PREVIOUS_DESIGN_MS`` records one, not
+measured here), a
 ``kernels`` summary line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without the last line.
 """
@@ -109,11 +110,13 @@ LARGE_NODES, LARGE_EDGES = 65536, 2 ** 21
 #: The attend kernels' large shape: a community graph without shuffle
 #: (``bench.py``'s 2M-edge GAT shape, its locality given, not recovered).
 ATTEND_LARGE = dict(n=131072, e=2 ** 21, comm=256, heads=8, feat=128)
-#: K3's and K7's times with their previous design (a CTA per quarter row
-#: block and 32-column slab), ms ("NVIDIA H100 80GB HBM3, 700.00 W",
-#: PERF.md), keyed by (kernel, graph, x dtype, width): recorded, not
-#: measured by this script. ``previous_design`` prints them on a line of
-#: their own beside this run's times.
+#: Times with each kernel's previous design, ms ("NVIDIA H100 80GB HBM3,
+#: 700.00 W", PERF.md): K3 and K7 (a CTA per quarter row block and
+#: 32-column slab) keyed by (kernel, graph, x dtype, width); K4 and K6 (a
+#: warp per row, a lane group per head, two passes in K4) by (kernel,
+#: graph, x dtype, "HxF", dropout). Recorded, not measured by this script:
+#: ``previous_design`` prints them on a line of their own beside this run's
+#: times.
 PREVIOUS_DESIGN_MS = {
     ("K3", "cora_gcn", "float32", 128): 0.00752,
     ("K3", "cora_gcn", "float32", 7): 0.00455,
@@ -125,6 +128,13 @@ PREVIOUS_DESIGN_MS = {
     ("K7", "pubmed", "float32", 500): 0.03732,
     ("K7", "pubmed", "float32", 128): 0.01130,
     ("K7", "large", "float32", 128): 0.4056,
+    ("K4", "cora", "float32", "8x8", True): 0.00877,
+    ("K6", "cora", "float32", "8x8", True): 0.01094,
+    ("K4", "cora", "float32", "1x7", True): 0.00815,
+    ("K4", "hub", "float32", "8x8", True): 0.03587,
+    ("K4", "large", "float32", "8x128", False): 4.226,
+    ("K6", "large", "float32", "8x128", False): 5.049,
+    ("K4", "large", "bfloat16", "8x128", False): 4.170,
 }
 #: Attention dropout of the GAT path (and its keep rate in the checks).
 GAT_DROPOUT = 0.6
@@ -374,6 +384,9 @@ def _attend_work(kern, hg, heads, hf, bits, by_col, by_row, whole):
     visits (K4-K6 the nonzero tile slots and the remainder edges, K8 the
     remainder edges only, K9 and K10 the nonzero tile slots only; K6 two
     contractions, q and dx, the others one); one exp per (edge, head).
+    The tiles count as the lesser of the dense store and what gives the
+    same values: the row masks (16 bytes a tile row) and the nonzero
+    slots' values.
     Of the [N, ...] operands, those of ``by_col`` count only at the nodes
     that the visited edges name as senders (columns) and those of
     ``by_row`` only at the rows that receive one; ``whole`` (the outputs,
@@ -401,7 +414,9 @@ def _attend_work(kern, hg, heads, hf, bits, by_col, by_row, whole):
     nbytes = (named(cols, by_col) + named(rows, by_row) + _nbytes(*whole)
               + e * 8)
     if tiles:
-        nbytes += _nbytes(bg.tiles, bg.col_ids, bg.tile_off, bg.tile_cnt)
+        nbytes += (min(_nbytes(bg.tiles), _nbytes(bg.row_masks)
+                       + nnz * bg.tiles.element_size())
+                   + _nbytes(bg.col_ids, bg.tile_off, bg.tile_cnt))
     if remainder:
         nbytes += _nbytes(rem.row_ptr)
     if bits is not None:
@@ -490,11 +505,11 @@ def _attend_case(label, hg, heads, feat, dtype, dropping, gen, plain_reps):
                lambda: k56.attend_bwd_b_plain(*bwd),
                (gn, fdm3), (x, fs), (dx, dfs)),
     }
-    shift = bcsr_attention.three_pass_shift(hg, fs, fd, 0.2)
-    return (_timed_cases(calls, errs, label, hg, heads, feat, dtype, bits,
+    cases = _timed_cases(calls, errs, label, hg, heads, feat, dtype, bits,
                          plain_reps)
-            + _parts_cases(label, hg, x, fs, fd, shift, bits, keep_mul,
-                           plain_reps, "exact"))
+    shift = bcsr_attention.three_pass_shift(hg, fs, fd, 0.2)
+    return cases + _parts_cases(label, hg, x, fs, fd, shift, bits, keep_mul,
+                                plain_reps, "exact")
 
 
 def _parts_cases(label, hg, x, fs, fd, m, bits, keep_mul, plain_reps,
@@ -553,19 +568,55 @@ def _large_hybrid():
                         big["n"], min_edges_per_tile=192, device=DEVICE)
 
 
+def _hub_hybrid(transpose=False):
+    """``_hub_graph`` as a hybrid on the card, its shape checked; with
+    ``transpose``, its edges reversed, so that the hub's rows are senders
+    (K6's long rows)."""
+    hub_s, hub_r, hub_n = _hub_graph()
+    if transpose:
+        hub_s, hub_r = hub_r, hub_s
+    hub = build_hybrid(hub_s, hub_r, hub_n, device=DEVICE)
+    bg = hub.bcsr_t if transpose else hub.bcsr
+    if not (int(bg.tile_cnt[0]) > 6 and (transpose or
+                                          int(hub.rem_fine_cnt[0]) > 8)):
+        raise AssertionError("hub graph: row block 0 holds "
+                             f"{int(hub.rem_fine_cnt[0])} remainder chunks "
+                             f"and {int(bg.tile_cnt[0])} tiles")
+    if int(hub.long_rows[int(transpose)].numel()) == 0:
+        raise AssertionError("hub graph: no row is split over a CTA")
+    return hub
+
+
+def attend_shapes(cora_hybrid, hub, large):
+    """(label, graph, heads, feat, plain reps) of the attend kernels'
+    cases: the two GAT layers' widths at Cora, the hub graph (long rows
+    split over a CTA in K4) and its reverse (in K6), and the large shape;
+    then one head at widths that take the walk's other column layouts
+    (``attend_common.attend_layout``): two and four 16-byte vectors a lane,
+    two and four scalars, and heads wider than a warp holds, split into
+    parts, on split rows. The large shape is costly for the plain versions,
+    so they run fewer times there."""
+    big = ATTEND_LARGE
+    hub_t = _hub_hybrid(transpose=True)
+    return [("cora", cora_hybrid, 8, 8, (3, 5)),
+            ("cora", cora_hybrid, 1, 7, (3, 5)),
+            ("hub", hub, 8, 8, (3, 5)),
+            ("hub_t", hub_t, 8, 8, (3, 5)),
+            ("large", large, big["heads"], big["feat"], (2, 1)),
+            ("cora", cora_hybrid, 1, 256, (3, 5)),
+            ("cora", cora_hybrid, 1, 512, (3, 5)),
+            ("cora", cora_hybrid, 1, 50, (3, 5)),
+            ("hub", hub, 1, 1024, (3, 5)),
+            ("hub_t", hub_t, 1, 251, (3, 5))]
+
+
 def phase_attend_kernels(cora_hybrid, large) -> list[dict]:
     """K4-K6 and K8-K10 at the GAT path's Cora shapes, a large community
     graph and a hub graph; float32 and bfloat16 (x and tiles), dropout off
     and on; K8-K10 once more at Cora 8x8 with ``m = 0``."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    big = ATTEND_LARGE
-    hub_s, hub_r, hub_n = _hub_graph()
-    hub = build_hybrid(hub_s, hub_r, hub_n, device=DEVICE)
-    if not (int(hub.rem_fine_cnt[0]) > 8 and int(hub.bcsr.tile_cnt[0]) > 6):
-        raise AssertionError("hub graph: row block 0 holds "
-                             f"{int(hub.rem_fine_cnt[0])} remainder chunks "
-                             f"and {int(hub.bcsr.tile_cnt[0])} tiles")
+    hub = _hub_hybrid()
     emit({"phase": "kernels", "graphs": {
         name: dict(nodes=g.n_nodes, tiles=g.bcsr.n_tiles,
                    tiled_edges=g.bcsr.n_edges, remainder_edges=g.rem.n_edges,
@@ -574,15 +625,10 @@ def phase_attend_kernels(cora_hybrid, large) -> list[dict]:
         for name, g in (("cora", cora_hybrid), ("large", large),
                         ("hub", hub))},
         "seconds": time.perf_counter() - t0})
-    # Cora: the two GAT layers' widths; the large shape is costly for the
-    # plain versions, so they run fewer times there
-    shapes = [("cora", cora_hybrid, 8, 8, (3, 5)),
-              ("cora", cora_hybrid, 1, 7, (3, 5)),
-              ("hub", hub, 8, 8, (3, 5)),
-              ("large", large, big["heads"], big["feat"], (2, 1))]
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
-        for label, hg, heads, feat, plain_reps in shapes:
+        for label, hg, heads, feat, plain_reps in attend_shapes(
+                cora_hybrid, hub, large):
             hg = _with_tile_dtype(hg, dtype)
             for dropping in (False, True):
                 cases += _attend_case(label, hg, heads, feat, dtype,
@@ -1060,17 +1106,34 @@ def _tile_case(c) -> str:
             "tiles")
 
 
+def _attend_key(c) -> tuple:
+    return (c["kernel"], c["graph"], c["dtype"],
+            f"{c['shape'][1]}x{c['shape'][2]}", c["dropout"])
+
+
 def previous_design(cases) -> dict:
-    """Each K3/K7 case's time in this run beside its previous design's,
-    which ``PREVIOUS_DESIGN_MS`` holds as recorded, not measured here."""
+    """Each K3, K4, K6 and K7 case's time in this run beside its previous
+    design's, which ``PREVIOUS_DESIGN_MS`` holds as recorded (None where it
+    holds none), not measured here."""
+    rows = []
+    for c in cases:
+        if c["kernel"] in ("K3", "K7"):
+            case = _tile_case(c)
+            key = (c["kernel"], c["graph"], c["dtype"], c["shape"][1])
+        elif c["kernel"] in ("K4", "K6"):
+            key = _attend_key(c)
+            case = (f"{c['dtype']} {key[3]} on {c['graph']}"
+                    + (" with dropout" if c["dropout"] else ""))
+        else:
+            continue
+        rows.append({"kernel": c["kernel"], "case": case,
+                     "ms": c["kernel_ms"], "bound_ms": c["bound_ms"],
+                     "recorded_previous_design_ms":
+                         PREVIOUS_DESIGN_MS.get(key)})
     return {"previous_design": {
         "recorded_ms_from": "PERF.md (NVIDIA H100 80GB HBM3, 700.00 W); "
                             "not measured in this run",
-        "cases": [
-            {"case": _tile_case(c), "ms": c["kernel_ms"],
-             "recorded_previous_design_ms": PREVIOUS_DESIGN_MS.get(
-                 (c["kernel"], c["graph"], c["dtype"], c["shape"][1]))}
-            for c in cases if c["kernel"] in ("K3", "K7")]}}
+        "cases": rows}}
 
 
 def main() -> None:

@@ -37,6 +37,10 @@ ROW_BLOCK = 128   # receiver rows per tile
 COL_BLOCK = 128   # sender columns per tile
 #: Remainder chunk width of the TPU attend kernels (``rem_fine_*`` spans).
 ATTEND_CHUNK = 256
+#: A row of K4's or K6's walk with more edges than this (remainder edges
+#: plus nonzero tile slots) is split over the 8 warps of a CTA of its own
+#: (``HybridGraph.long_rows``); picked on the hub case (PERF.md §6).
+LONG_ROW_EDGES = 32
 
 
 def _tensors_to(obj, device):
@@ -229,8 +233,37 @@ class HybridGraph:
     def device(self) -> torch.device:
         return self.bcsr.device
 
+    @functools.cached_property
+    def row_edges(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """int32 [N] twice: each receiver row's edges in the forward layout
+        (its nonzero tile slots, as ``bcsr.row_masks`` holds them, plus its
+        remainder edges) and each sender row's in the transpose layout
+        (``bcsr_t``, ``rem_t``): the length of the row that K4 and K6 walk.
+        Built at first use and kept with the graph."""
+        return (_row_edges(self.bcsr, self.rem),
+                _row_edges(self.bcsr_t, self.rem_t))
+
+    @functools.cached_property
+    def long_rows(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """int32 twice: the rows (ascending) of the forward layout and of
+        the transpose layout with more than ``LONG_ROW_EDGES`` edges
+        (``row_edges``). K4 and K6 give each such row a CTA of its own.
+        Built at first use (a host sync) and kept with the graph."""
+        return tuple(torch.nonzero(c > LONG_ROW_EDGES).flatten().int()
+                     for c in self.row_edges)
+
     def to(self, device) -> "HybridGraph":
         return _tensors_to(self, device)
+
+
+def _row_edges(bg: BCSRGraph, rem: Graph) -> torch.Tensor:
+    """int32 [N]: each row's nonzero tile slots plus its remainder edges."""
+    n = bg.n_nodes
+    rows = (bg.row_ids.long()[:, None] * ROW_BLOCK
+            + torch.arange(ROW_BLOCK, device=bg.device)).flatten()
+    slots = torch.zeros(bg.n_node_pad, dtype=torch.int64, device=bg.device)
+    slots.index_add_(0, rows, (bg.tiles != 0).sum(-1).flatten())
+    return (slots[:n] + (rem.row_ptr[1:] - rem.row_ptr[:-1])).int()
 
 
 def build_hybrid(

@@ -18,8 +18,12 @@ den``), every edge s -> r recomputes ``p = w * exp(min(LeakyReLU(f_dst[r]
 ``keep_mul``: pass B reads them through ``hg.bits_tmap`` (transposed) and
 ``hg.rem_t_eperm``. They replace the TPU kernels ``_bwd_a_kernel`` and
 ``_bwd_b_kernel`` of ``graphneuralnetwork_tpu/ops/pallas/attend_bwd_kernel.py``
-(``attend_bwd_a_pallas``, ``attend_bwd_b_pallas``); the design note is in
-the CUDA source. A CUDA tensor launches the kernel; a CPU tensor takes
+(``attend_bwd_a_pallas``, ``attend_bwd_b_pallas``); the design notes are in
+the CUDA source. Pass B walks each sender row as K4 walks a receiver row
+(``csrc/attend_walk.cuh``, ``attend_common.attend_layout``,
+``HybridGraph.row_edges`` and ``long_rows``), a slab of whole heads at a
+time; a head wider than one warp holds (512 features of 16-byte vectors,
+128 of scalars) splits into parts that the row's warp walks in turn. A CUDA tensor launches the kernel; a CPU tensor takes
 ``attend_bwd_a_plain`` / ``attend_bwd_b_plain``, which compute the same
 passes from the same operands without autograd.
 ``attend_bwd_a.launches`` and ``attend_bwd_b.launches`` count launches.
@@ -33,9 +37,10 @@ from typing import Optional
 import torch
 
 from ...core.bcsr import HybridGraph
-from .attend_common import (SCALAR_ARGTYPES, check_operands, edge_chunks,
-                            keep_factors, leaky, leaky_grad, ptr,
-                            scalar_args, tile_slots)
+from .attend_common import (LONG_ROW_EDGES, SCALAR_ARGTYPES,
+                            check_operands, edge_chunks, keep_factors,
+                            leaky, leaky_grad, ptr, scalar_args, tile_slots,
+                            walk_layout)
 from .attend_online_kernel import forward_edges
 from .build import check, load
 
@@ -114,9 +119,13 @@ def attend_bwd_b_plain(hg: HybridGraph, x: torch.Tensor, gn: torch.Tensor,
     return dx.reshape(n, hf).to(x.dtype), dfs
 
 
-#: both entries of the one library, declared at its first load
+#: both entries of the one library, declared at its first load; pass B
+#: takes n, heads, feat, x_bf16, tile_bf16, the column layout (vec, nv,
+#: lpe, slab_heads, parts), n_long and long_edges before the trailing
+#: scalars
 _ENTRIES = {"gnn_attend_bwd_a": [ctypes.c_void_p] * 14 + SCALAR_ARGTYPES,
-            "gnn_attend_bwd_b": [ctypes.c_void_p] * 17 + SCALAR_ARGTYPES}
+            "gnn_attend_bwd_b": [ctypes.c_void_p] * 20 + [ctypes.c_int] * 12
+            + SCALAR_ARGTYPES[-5:]}
 
 
 def _prepare(name, hg, x, gn, f_src, fdm3, bits, keep_mul, keep_prob):
@@ -177,6 +186,10 @@ def attend_bwd_b(hg: HybridGraph, x: torch.Tensor, gn: torch.Tensor,
     if n == 0:
         return dx, dfs
     bg_t, rem_t = hg.bcsr_t, hg.rem_t
+    lay = walk_layout(heads, x, gn, dx)
+    long_rows = hg.long_rows[1]
+    scalars = scalar_args(x, bg_t.tiles, heads, slope, keep_prob, dropping,
+                          cpl=False)
     lib = load("attend_bwd_kernel", _ENTRIES)
     with torch.cuda.device(x.device):
         err = lib.gnn_attend_bwd_b(
@@ -184,11 +197,12 @@ def attend_bwd_b(hg: HybridGraph, x: torch.Tensor, gn: torch.Tensor,
             bg_t.tiles.data_ptr(), ptr(bits),
             hg.bits_tmap.data_ptr(), bg_t.col_ids.data_ptr(),
             bg_t.tile_off.data_ptr(), bg_t.tile_cnt.data_ptr(),
-            rem_t.senders.data_ptr(), rem_t.row_ptr.data_ptr(),
-            rem_t.edge_weight.data_ptr(), hg.rem_t_eperm.data_ptr(),
-            ptr(keep_mul), dx.data_ptr(),
-            dfs.data_ptr(),
-            *scalar_args(x, bg_t.tiles, heads, slope, keep_prob, dropping))
+            bg_t.row_masks.data_ptr(), rem_t.senders.data_ptr(),
+            rem_t.row_ptr.data_ptr(), rem_t.edge_weight.data_ptr(),
+            hg.rem_t_eperm.data_ptr(), ptr(keep_mul),
+            hg.row_edges[1].data_ptr(), long_rows.data_ptr(), dx.data_ptr(),
+            dfs.data_ptr(), *scalars[:5], *lay.args(), lay.parts,
+            long_rows.numel(), LONG_ROW_EDGES, *scalars[-5:])
     check(lib, err, "attend_bwd_b kernel launch")
     attend_bwd_b.launches += 1
     return dx, dfs

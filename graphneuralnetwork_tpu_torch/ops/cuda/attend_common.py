@@ -3,19 +3,23 @@ share.
 
 The dropout hash (``head_keep``) and its constants, the edge lists that the
 plain versions build from the hybrid layout, the softmax partials over such
-a list (``softmax_parts``), and the checks and launch arguments of the
-wrappers. Pure PyTorch: nothing here builds or loads a kernel.
+a list (``softmax_parts``), the checks and launch arguments of the
+wrappers, and the column layout of K4's and K6's row walk
+(``attend_layout``, ``csrc/attend_walk.cuh``). Pure PyTorch: nothing here
+builds or loads a kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
-from ...core.bcsr import COL_BLOCK, ROW_BLOCK, BCSRGraph, HybridGraph
+from ...core.bcsr import (COL_BLOCK, LONG_ROW_EDGES, ROW_BLOCK, BCSRGraph,
+                          HybridGraph)
 
 NEG = -1e30  # "-inf" stand-in that survives float32 arithmetic
 _MASK32 = 0xFFFFFFFF
@@ -23,6 +27,17 @@ _MASK32 = 0xFFFFFFFF
 CPL_CHOICES = (1, 2, 4, 8, 16, 32)
 #: Elements of a per-edge [E, H*F] temporary of the plain versions.
 PLAIN_CHUNK_ELEMENTS = 1 << 26
+#: K4's and K6's row walk (``csrc/attend_walk.cuh``): heads of a slab at
+#: most (``kSlabHeads``), vectors a lane holds at most, columns a lane holds
+#: at most.
+SLAB_HEADS = 8
+MAX_VECS_PER_LANE = 4
+MAX_COLS_PER_LANE = 16
+#: 16-byte vectors a lane holds at most, by element size: four of float32,
+#: one of bfloat16 (at 8 heads x 128 on an H100 a bfloat16 lane holding two
+#: took 17 % longer in K4 and 24 % in K6, a float32 lane holding two in
+#: place of four 44 % and 22 %: PERF.md §6).
+VECS_PER_LANE = {4: 4, 2: 1}
 
 
 def head_mul(h: int) -> int:
@@ -158,6 +173,69 @@ def columns_per_lane(heads: int, feat: int) -> int:
                      f"{group * CPL_CHOICES[-1]} at {heads} heads")
 
 
+@dataclasses.dataclass(frozen=True)
+class AttendLayout:
+    """The column layout of K4's and K6's row walk: vectors of ``vec``
+    elements (16 bytes, or 1 element where the head width or the address
+    does not allow 16), ``nv`` of them a lane, ``lpe`` lanes an edge (32 /
+    ``lpe`` edges at a time); slabs of ``slab_heads`` whole heads or, with
+    ``parts > 1``, one head in ``parts`` slabs; ``n_slabs`` slabs a row (the
+    grid's second dimension)."""
+
+    vec: int
+    nv: int
+    lpe: int
+    slab_heads: int
+    parts: int
+    n_slabs: int
+
+    def args(self) -> list:
+        return [self.vec, self.nv, self.lpe, self.slab_heads]
+
+
+def attend_layout(heads: int, feat: int, itemsize: int,
+                  aligned: bool = True) -> AttendLayout:
+    """The slab rule: a slab holds as many whole heads as a warp's 32 lanes
+    hold at ``VECS_PER_LANE`` 16-byte vectors (or ``MAX_VECS_PER_LANE``
+    scalars) each, at most ``MAX_COLS_PER_LANE`` columns (and at most
+    ``SLAB_HEADS`` heads); a
+    head wider than that splits into equal parts. A slab of up to 32
+    vectors takes one vector a lane and the smallest power of two of lanes
+    an edge that covers it; a wider one all 32 lanes and the fewest vectors
+    a lane. ``aligned``: every row operand's address is a multiple of 16
+    bytes (else ``vec`` is 1)."""
+    full = 16 // itemsize
+    vec = full if feat % full == 0 and aligned else 1
+    vph = feat // vec
+    vecs = VECS_PER_LANE[itemsize] if vec > 1 else MAX_VECS_PER_LANE
+    width = 32 * min(vecs, MAX_COLS_PER_LANE // vec)
+    if vph > width:   # a head wider than that: as many as 16 columns hold
+        width = 32 * min(MAX_VECS_PER_LANE, MAX_COLS_PER_LANE // vec)
+    if vph <= width:
+        slab_heads = max(1, min(heads, SLAB_HEADS, width // vph))
+        parts = 1
+        vecs = slab_heads * vph
+    else:
+        slab_heads = 1
+        parts = -(-vph // width)
+        vecs = -(-vph // parts)
+    if vecs <= 32:
+        nv, lpe = 1, 1 << (vecs - 1).bit_length()
+    else:
+        nv, lpe = 1 << (-(-vecs // 32) - 1).bit_length(), 32
+    n_slabs = heads * parts if parts > 1 else -(-heads // slab_heads)
+    return AttendLayout(vec, nv, lpe, slab_heads, parts, n_slabs)
+
+
+def walk_layout(heads: int, x: torch.Tensor, *rows: torch.Tensor
+                ) -> AttendLayout:
+    """``attend_layout`` for ``x`` and the other [N, H*F] operands of one
+    call (their addresses decide the vector width)."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *rows))
+    return attend_layout(heads, x.shape[1] // heads, x.element_size(),
+                         aligned)
+
+
 def check_operands(name: str, hg: HybridGraph, x: torch.Tensor,
                    heads: int, bits: Optional[torch.Tensor],
                    keep_mul: Optional[torch.Tensor], dropping: bool,
@@ -223,11 +301,14 @@ SCALAR_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float,
 
 
 def scalar_args(x: torch.Tensor, tiles: torch.Tensor, heads: int,
-                slope: float, keep_prob: float, dropping: bool) -> list:
+                slope: float, keep_prob: float, dropping: bool,
+                cpl: bool = True) -> list:
+    """The trailing scalars (``SCALAR_ARGTYPES``); without ``cpl`` (K4 and
+    K6, whose layout is ``attend_layout``'s) the sixth is left out."""
     n, hf = x.shape
+    lanes = [columns_per_lane(heads, hf // heads)] if cpl else []
     return [n, heads, hf // heads, int(x.dtype == torch.bfloat16),
-            int(tiles.dtype == torch.bfloat16),
-            columns_per_lane(heads, hf // heads),
+            int(tiles.dtype == torch.bfloat16), *lanes,
             float(slope), float(np.float32(1.0 / keep_prob)),
             keep_thresh(keep_prob) if dropping else 0, int(dropping),
             torch.cuda.current_stream(x.device).cuda_stream]

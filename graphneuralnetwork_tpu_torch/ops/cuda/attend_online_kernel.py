@@ -21,9 +21,14 @@ remainder. Returns ``(out, den, m)``; ``den`` and ``m`` are float32
 It replaces the TPU kernels ``_attend_unrolled_kernel`` /
 ``_attend_2d_kernel`` of
 ``graphneuralnetwork_tpu/ops/pallas/attend_online_kernel.py``
-(``attend_online_pallas``); the design note is in the CUDA source. A CUDA
-tensor launches the kernel; a CPU tensor takes ``attend_online_plain``.
-``attend_online.launches`` counts kernel launches.
+(``attend_online_pallas``); the design note is in the CUDA source. The
+kernel walks each receiver row's edges in batches of 32 with an online
+softmax (``csrc/attend_walk.cuh``); its column layout comes from
+``attend_common.attend_layout``, each row's length from
+``HybridGraph.row_edges`` and the rows it splits over a CTA from
+``HybridGraph.long_rows``. A CUDA tensor launches the kernel; a CPU tensor
+takes ``attend_online_plain``. ``attend_online.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -34,9 +39,10 @@ from typing import Optional
 import torch
 
 from ...core.bcsr import HybridGraph
-from .attend_common import (NEG, SCALAR_ARGTYPES, check_operands, leaky,
-                            ptr, rem_edges, scalar_args, softmax_parts,
-                            tile_edges)
+from .attend_common import (LONG_ROW_EDGES, NEG, SCALAR_ARGTYPES,
+                            check_operands, leaky, ptr, rem_edges,
+                            scalar_args, softmax_parts, tile_edges,
+                            walk_layout)
 from .build import check, load
 
 
@@ -81,7 +87,11 @@ def attend_online_plain(hg: HybridGraph, x: torch.Tensor,
     return out.reshape(n, hf).to(x.dtype), den, m
 
 
-_ENTRIES = {"gnn_attend_online": [ctypes.c_void_p] * 15 + SCALAR_ARGTYPES}
+#: pointers, then n, heads, feat, x_bf16, tile_bf16, the column layout
+#: (vec, nv, lpe, slab_heads, parts), n_long, long_edges, and the trailing
+#: slope, inv_keep, thresh, dropping, stream
+_ENTRIES = {"gnn_attend_online": [ctypes.c_void_p] * 18
+            + [ctypes.c_int] * 12 + SCALAR_ARGTYPES[-5:]}
 
 
 def attend_online(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
@@ -104,17 +114,22 @@ def attend_online(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
     if n == 0:
         return out, den, m
     bg, rem = hg.bcsr, hg.rem
+    lay = walk_layout(heads, x, out)
+    long_rows = hg.long_rows[0]
+    scalars = scalar_args(x, bg.tiles, heads, slope, keep_prob, dropping,
+                          cpl=False)
     lib = load("attend_online_kernel", _ENTRIES)
     with torch.cuda.device(x.device):
         err = lib.gnn_attend_online(
             x.data_ptr(), f_src.data_ptr(), f_dst.data_ptr(),
             bg.tiles.data_ptr(), ptr(bits),
             bg.col_ids.data_ptr(), bg.tile_off.data_ptr(),
-            bg.tile_cnt.data_ptr(), rem.senders.data_ptr(),
-            rem.row_ptr.data_ptr(), rem.edge_weight.data_ptr(),
-            ptr(keep_mul), out.data_ptr(),
-            den.data_ptr(), m.data_ptr(),
-            *scalar_args(x, bg.tiles, heads, slope, keep_prob, dropping))
+            bg.tile_cnt.data_ptr(), bg.row_masks.data_ptr(),
+            rem.senders.data_ptr(), rem.row_ptr.data_ptr(),
+            rem.edge_weight.data_ptr(), ptr(keep_mul),
+            hg.row_edges[0].data_ptr(), long_rows.data_ptr(), out.data_ptr(),
+            den.data_ptr(), m.data_ptr(), *scalars[:5], *lay.args(),
+            lay.parts, long_rows.numel(), LONG_ROW_EDGES, *scalars[-5:])
     check(lib, err, "attend_online kernel launch")
     attend_online.launches += 1
     return out, den, m
