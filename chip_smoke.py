@@ -13,9 +13,11 @@ Phases, each printing one JSON line:
                shapes, and times kernel, plain version and, where one
                exists, one library call (CUDA events, warmed, median):
                K1/K2 on the Cora COO graph and a 2M-edge graph; K4, K5 and
-               K6 on the Cora GAT hybrid (8x8 and 1x7), a 2M-edge community
+               K6 on the Cora GAT hybrid (8x8 and 1x7; 8x256, 2x600 and
+               3x42 and one head of 50, 256 and 512), a 2M-edge community
                graph (8x128) and a hub graph whose densest row block holds
-               more than 8 remainder chunks and 6 tiles; float32 and
+               more than 8 remainder chunks and 6 tiles (8x8, 1x1024) and
+               its reverse (8x8, 1x251); float32 and
                bfloat16, with and without attention dropout; K8, K9 and
                K10 on the same operands with the three-pass shift, and
                once at Cora 8x8 with the profiler's m = 0; K3 on the
@@ -51,9 +53,9 @@ Phases, each printing one JSON line:
                epochs with the mean aggregator (K3 and K1, no K7 or K2),
                then with ``--set aggregator=max`` (K7 and K2, no K3 or K1).
 Every CLI run must reach test_acc >= 0.80 with exact launch counts.
-Then a ``previous_design`` line (every K3, K4, K6 and K7 case beside its
-previous design's time where ``PREVIOUS_DESIGN_MS`` records one, not
-measured here), a
+Then a ``previous_design`` line (every K3-K7 case beside its previous
+design's time where ``PREVIOUS_DESIGN_MS`` records one, not measured
+here), a
 ``kernels`` summary line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without the last line.
 """
@@ -112,8 +114,8 @@ LARGE_NODES, LARGE_EDGES = 65536, 2 ** 21
 ATTEND_LARGE = dict(n=131072, e=2 ** 21, comm=256, heads=8, feat=128)
 #: Times with each kernel's previous design, ms ("NVIDIA H100 80GB HBM3,
 #: 700.00 W", PERF.md): K3 and K7 (a CTA per quarter row block and
-#: 32-column slab) keyed by (kernel, graph, x dtype, width); K4 and K6 (a
-#: warp per row, a lane group per head, two passes in K4) by (kernel,
+#: 32-column slab) keyed by (kernel, graph, x dtype, width); K4, K5 and K6
+#: (a warp per row, a lane group per head, two passes in K4) by (kernel,
 #: graph, x dtype, "HxF", dropout). Recorded, not measured by this script:
 #: ``previous_design`` prints them on a line of their own beside this run's
 #: times.
@@ -135,6 +137,14 @@ PREVIOUS_DESIGN_MS = {
     ("K4", "large", "float32", "8x128", False): 4.226,
     ("K6", "large", "float32", "8x128", False): 5.049,
     ("K4", "large", "bfloat16", "8x128", False): 4.170,
+    ("K5", "cora", "float32", "8x8", True): 0.01044,
+    ("K5", "large", "float32", "8x128", False): 3.054,
+    ("K5", "large", "bfloat16", "8x128", False): 4.189,
+    ("K5", "hub", "float32", "8x8", True): 0.03978,
+    ("K5", "hub_t", "float32", "1x251", False): 0.01896,
+    ("K5", "hub_t", "float32", "1x251", True): 0.01905,
+    ("K5", "hub_t", "bfloat16", "1x251", False): 0.01894,
+    ("K5", "hub_t", "bfloat16", "1x251", True): 0.01905,
 }
 #: Attention dropout of the GAT path (and its keep rate in the checks).
 GAT_DROPOUT = 0.6
@@ -590,12 +600,17 @@ def _hub_hybrid(transpose=False):
 def attend_shapes(cora_hybrid, hub, large):
     """(label, graph, heads, feat, plain reps) of the attend kernels'
     cases: the two GAT layers' widths at Cora, the hub graph (long rows
-    split over a CTA in K4) and its reverse (in K6), and the large shape;
-    then one head at widths that take the walk's other column layouts
-    (``attend_common.attend_layout``): two and four 16-byte vectors a lane,
-    two and four scalars, and heads wider than a warp holds, split into
-    parts, on split rows. The large shape is costly for the plain versions,
-    so they run fewer times there."""
+    split over a CTA in K4 and K5) and its reverse (in K6), and the large
+    shape; then one head at widths that take the walk's other column
+    layouts (``attend_common.attend_layout``): two and four 16-byte vectors
+    a lane, two and four scalars, and heads wider than a warp holds, split
+    into parts, on split rows; then heads wider than K8-K10's lane groups
+    hold in one window (8 x 256: K4-K6 in slabs of 2 heads; 2 x 600: in
+    parts on a multi-head row), 3 heads of 42 scalars (four a lane, a
+    slab of a head count that is not a power of two) and one head of 301
+    scalars (K5 in two parts of eight a lane, where one of 251 takes one
+    part). The large shape is costly for the plain versions, so they run
+    fewer times there."""
     big = ATTEND_LARGE
     hub_t = _hub_hybrid(transpose=True)
     return [("cora", cora_hybrid, 8, 8, (3, 5)),
@@ -607,7 +622,11 @@ def attend_shapes(cora_hybrid, hub, large):
             ("cora", cora_hybrid, 1, 512, (3, 5)),
             ("cora", cora_hybrid, 1, 50, (3, 5)),
             ("hub", hub, 1, 1024, (3, 5)),
-            ("hub_t", hub_t, 1, 251, (3, 5))]
+            ("hub_t", hub_t, 1, 251, (3, 5)),
+            ("cora", cora_hybrid, 8, 256, (3, 5)),
+            ("cora", cora_hybrid, 2, 600, (3, 5)),
+            ("cora", cora_hybrid, 3, 42, (3, 5)),
+            ("cora", cora_hybrid, 1, 301, (3, 5))]
 
 
 def phase_attend_kernels(cora_hybrid, large) -> list[dict]:
@@ -1112,15 +1131,15 @@ def _attend_key(c) -> tuple:
 
 
 def previous_design(cases) -> dict:
-    """Each K3, K4, K6 and K7 case's time in this run beside its previous
-    design's, which ``PREVIOUS_DESIGN_MS`` holds as recorded (None where it
-    holds none), not measured here."""
+    """Each K3-K7 case's time in this run beside its previous design's,
+    which ``PREVIOUS_DESIGN_MS`` holds as recorded (None where it holds
+    none), not measured here."""
     rows = []
     for c in cases:
         if c["kernel"] in ("K3", "K7"):
             case = _tile_case(c)
             key = (c["kernel"], c["graph"], c["dtype"], c["shape"][1])
-        elif c["kernel"] in ("K4", "K6"):
+        elif c["kernel"] in ("K4", "K5", "K6"):
             key = _attend_key(c)
             case = (f"{c['dtype']} {key[3]} on {c['graph']}"
                     + (" with dropout" if c["dropout"] else ""))

@@ -20,14 +20,41 @@
 //
 // Pass A (K5) replaces _bwd_a_kernel of
 // graphneuralnetwork_tpu/ops/pallas/attend_bwd_kernel.py (:68, pallas_call
-// at :226). It keeps its first design: one warp owns one receiver row
-// and walks its edges, each head's lane group reading its columns, q a sum
-// over the group. Bound: bytes, once per edge two gathered [H*F] rows (x
-// and gn) and once per tile its store and lattice.
+// at :226), which puts a head's whole width in one VMEM block per 128-row
+// block. Here it walks the row stream of attend_walk.cuh, as K4 does: a
+// warp takes a receiver row and a slab of whole heads; one lane per edge
+// loads the sender, the weight and the dropout word (fill_edge, K4's); one
+// lane per (edge, head) loads f_src at the sender and computes p, leaky'
+// and keep against the row's own f_dst, m and dden (loaded once); then
+// the warp gathers the senders' x rows in 16-byte vectors. dfd is linear
+// in x_s:
+//   dfd[r,h] = dden[r,h] * sum_s p * leaky'
+//              + gn[r,h,:] . (sum_s p * keep * leaky' * x[s,h,:])
+// so each lane accumulates the second sum over its columns (K4's numerator
+// with the weights pa = p * keep * leaky' and no rescale: m is given), dots
+// it with the row's own gn once at the end of the row, and the lanes of a
+// head add their shares once (tagged by head, as K6's q shares). Bound:
+// bytes, the named x rows, the row's own gn row, fdm3 at the receivers,
+// f_src at the senders, the masks and the tile values (or the dense store,
+// if less), one lattice word per nonzero slot under dropout, dfd written
+// once; one exp per (edge, head) and 2 flops per (edge, column). What held
+// its first design back, and what this one does about it: it read every
+// tile value and balloted on it (here the masks of hg.bcsr give the
+// slots); each edge was a serial chain ending in a 5-shuffle group sum
+// (here 32 edges' chains run side by side and no edge needs a shuffle); a
+// lane held own[32] and read 32 scalars per edge at 8x128 (here at most 16
+// columns a lane, in vectors); a hub row ran on one warp (here a row above
+// the host's threshold takes a CTA of its own, whose warps' dfd partials
+// add in warp order). A head wider than a warp holds splits into parts:
+// the row's warp walks the row once and each batch part by part, dotting
+// each part's sums with the row's own gn of that part at once, since dfd
+// needs every part's shares. Each part gathers the batch's edges again, so
+// a head of scalars takes up to eight a lane (K4 and K6 four) before it
+// splits: up to 256 columns in one part.
 //
 // Pass B (K6) replaces _bwd_b_kernel of the same file (:251, pallas_call
 // at :439), which contracts q and dx per 128-row block on the TPU's matrix
-// unit. Here it walks the row stream of attend_walk.cuh, as K4 does: a
+// unit. Here it walks the row stream of attend_walk.cuh too: a
 // warp takes a sender row and a slab of whole heads; one lane per edge
 // loads the receiver, the weight and the dropout word; one lane per (edge,
 // head) loads f_dst, m and dden at the receiver and computes p * keep and
@@ -50,8 +77,9 @@
 // sector per nonzero slot either way, so no transposed copy is built); a
 // row with many edges ran on one warp (here it takes a CTA, as in K4). A
 // head wider than a warp holds splits into parts that the row's warp
-// walks in turn (K4 puts them on the grid; K6's dfs needs every part's q
-// shares, which one warp sums in order without atomics or a second pass).
+// walks in turn (K4 puts them on the grid; K5's dfd and K6's dfs need every
+// part's shares, which one warp sums in order without atomics or a second
+// pass).
 // No atomics; every sum in a fixed order: deterministic.
 
 #include "attend_walk.cuh"
@@ -59,117 +87,211 @@
 namespace gnn_attend {
 namespace {
 
-struct BwdArgs {
+struct BwdAArgs {
   const void* x;           // [n, hf] XT
   const void* gn;          // [n, hf] XT
   const float* fs;         // [n, heads]
   const float* fdm3;       // [n, 3 * heads]
-  const void* tiles;       // [T, 128, 128]
+  const void* tiles;       // [T, 128, 128] forward tiles
   const int* bits;         // forward lattice [T, 128, 128], or null
   const int* col_ids;      // [T]
   const int* tile_off;     // [n_row_blocks]
   const int* tile_cnt;     // [n_row_blocks]
-  const int* rem_cols;     // [E_pad] the sender of each edge
+  const int* row_masks;    // [T, 128, 4]
+  const int* rem_senders;  // [E_pad] receiver-sorted remainder
   const int* rem_row_ptr;  // [n + 1]
   const float* rem_w;      // [E_pad]
   const float* keep_mul;   // [E_pad, heads], or null
-  float* dhead;            // dfd [n, heads]
+  const int* row_edges;    // [n] edges of each receiver row
+  const int* long_rows;    // [n_long]
+  float* dfd;              // [n, heads]
   int n, heads, feat, tile_bf16, dropping;
+  int vph, lpe, slab_heads, parts, n_long, long_edges;
   float slope, inv_keep;
   uint32_t thresh;
 };
 
-// Pass A for one receiver row.
-template <typename XT, int CPL>
-__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
-    attend_bwd_a_kernel(BwdArgs a) {
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= a.n) return;   // uniform per warp
-  const Lanes L = lane_layout(threadIdx.x & 31, a.heads);
-  const int heads = a.heads, feat = a.feat, h = L.head;
-  const long long hf = static_cast<long long>(heads) * feat;
-  // head h's columns of x and gn
-  const XT* x = static_cast<const XT*>(a.x) + h * feat;
-  const XT* gn = static_cast<const XT*>(a.gn) + h * feat;
-
-  // the receiver's own gn and f_dst/m/dden
-  float own[CPL];
-  const XT* own_row = gn + row * hf;
+// gn_r . acc over one vector (own: the row's gn there, packed).
+template <typename XT, int V>
+__device__ __forceinline__ float row_dot(const float (&acc)[V],
+                                         typename VecIO<XT, V>::Raw own) {
+  float g[V], t = 0.f;
+  VecIO<XT, V>::unpack(own, g);
 #pragma unroll
-  for (int j = 0; j < CPL; ++j) {
-    const int f = L.sub + L.group * j;
-    own[j] = L.active && f < feat ? to_float(own_row[f]) : 0.f;
-  }
-  const float* r3 = a.fdm3 + static_cast<long long>(row) * 3 * heads;
-  const float fd = r3[h], m = r3[heads + h], dd = r3[2 * heads + h];
-  float dhead = 0.f;
-
-  // one edge between this row and node `col` with weight w and numerator
-  // multiplier keep (1 without dropout)
-  auto edge = [&](int col, float w, float keep) {
-    const XT* other = x + col * hf;
-    float part = 0.f;
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-      const int f = L.sub + L.group * j;
-      part += own[j] * (L.active && f < feat ? to_float(other[f]) : 0.f);
-    }
-    const float q = group_sum(part, L.group);   // gn_r . x_s of head h
-    const float pre = fd + a.fs[col * heads + h];
-    const float p = w * expf(fminf(leaky(pre, a.slope) - m, 0.f));
-    dhead += p * (q * keep + dd) * leaky_grad(pre, a.slope);
-  };
-
-  const int e0 = a.rem_row_ptr[row], e1 = a.rem_row_ptr[row + 1];
-  for (int e = e0; e < e1; ++e) {
-    const float keep = a.dropping ? a.keep_mul[static_cast<long long>(e) *
-                                               heads + h]
-                                  : 1.f;
-    edge(a.rem_cols[e], a.rem_w[e], keep);
-  }
-  const int rb = row / kRowBlock, ri = row % kRowBlock;
-  const int t0 = a.tile_off[rb], t1 = t0 + a.tile_cnt[rb];
-  for (int t = t0; t < t1; ++t) {
-    const int cb = a.col_ids[t];
-    const long long base = (static_cast<long long>(t) * kRowBlock + ri) *
-                           kColBlock;
-#pragma unroll
-    for (int q = 0; q < kColBlock / 32; ++q) {
-      const int j = q * 32 + (threadIdx.x & 31);
-      const float wv = tile_val(a.tiles, a.tile_bf16, base + j);
-      const uint32_t bv = a.dropping && wv != 0.f
-                              ? static_cast<uint32_t>(a.bits[base + j])
-                              : 0u;
-      unsigned nz = __ballot_sync(kFull, wv != 0.f);
-      while (nz) {
-        const int l = __ffs(nz) - 1;
-        nz &= nz - 1;
-        const float w = __shfl_sync(kFull, wv, l);
-        const uint32_t b = __shfl_sync(kFull, bv, l);
-        const float keep = !a.dropping ? 1.f
-                           : head_keep(b, h, a.thresh) ? a.inv_keep
-                                                       : 0.f;
-        edge(cb * kColBlock + q * 32 + l, w, keep);
-      }
-    }
-  }
-
-  if (L.active && L.sub == 0) a.dhead[row * heads + h] = dhead;
+  for (int i = 0; i < V; ++i) t += acc[i] * g[i];
+  return t;
 }
 
-template <typename XT>
-cudaError_t launch_a(const BwdArgs& a, int cpl, cudaStream_t stream) {
-  const dim3 grid((a.n + kWarps - 1) / kWarps), block(kWarps * 32);
-  switch (cpl) {
-    case 1: attend_bwd_a_kernel<XT, 1><<<grid, block, 0, stream>>>(a); break;
-    case 2: attend_bwd_a_kernel<XT, 2><<<grid, block, 0, stream>>>(a); break;
-    case 4: attend_bwd_a_kernel<XT, 4><<<grid, block, 0, stream>>>(a); break;
-    case 8: attend_bwd_a_kernel<XT, 8><<<grid, block, 0, stream>>>(a); break;
-    case 16: attend_bwd_a_kernel<XT, 16><<<grid, block, 0, stream>>>(a); break;
-    case 32: attend_bwd_a_kernel<XT, 32><<<grid, block, 0, stream>>>(a); break;
-    default: return cudaErrorInvalidValue;
+// A warp's scratch for one batch: its edges and each (edge, head)'s
+// p * keep * leaky'; at the end of the row, each lane's shares of
+// gn_r . sum_s pa * x_s and their heads (NV of them, at least room for 4).
+template <int NV>
+struct AScratch {
+  EdgeScratch ed;
+  float pa[32 * kPStride];
+  float red[32 * (NV > 4 ? NV : 4)];
+  int red_head[32 * (NV > 4 ? NV : 4)];
+};
+
+// Pass A for one receiver row and one slab of whole heads, or (kParts,
+// a.parts > 1) one head in parts: the warp walks the row once, and each
+// batch's edges part by part, each part's gathered columns dotted with the
+// row's own gn of that part at once (dfd needs every part's shares).
+// kParts is a template switch so that the one-part walk keeps its
+// registers: there acc runs over the whole row and is dotted once.
+template <typename XT, int V, int NV, bool kParts>
+__global__ void __launch_bounds__(kWarps * 32, NV == 1 ? 4 : kMinBlocks)
+    attend_bwd_a_kernel(BwdAArgs a) {
+  __shared__ AScratch<NV> sh[kWarps];
+  __shared__ float split_dfd[kWarps][kSlabHeads];   // a long row's partials
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool split = blockIdx.x < a.n_long;
+  const int row = split ? a.long_rows[blockIdx.x]
+                        : (blockIdx.x - a.n_long) * kWarps + warp;
+  if (!split && row >= a.n) return;   // uniform per warp
+  // the row's length, loaded beside the walk's first loads: a long row
+  // has a CTA of its own
+  const int len = split || a.n_long > 0 ? a.row_edges[row] : 0;
+  const int parts = kParts ? a.parts : 1;
+  const int heads = a.heads, hf = heads * a.feat;
+  // the slab, or the first part: its heads are every part's
+  const Slab S = slab_of(blockIdx.y * parts, heads, a.vph, a.slab_heads,
+                         parts);
+  const ColLanes<NV> L0 = col_lanes<NV>(S, lane, a.lpe, a.vph, V);
+  const PairLanes P = pair_lanes(S.hs, lane);
+  const int hg = S.h0 + P.h;
+  const XT* x = static_cast<const XT*>(a.x);
+  const XT* gn = static_cast<const XT*>(a.gn) + static_cast<long long>(row) *
+                                                    hf;
+  AScratch<NV>& ws = sh[warp];
+  RowStream rs = row_stream(a.tile_off, a.tile_cnt, a.rem_row_ptr,
+                            a.row_masks, row, lane);
+  if (!split && a.n_long > 0 && len > a.long_edges) return;
+  int lo, hi;
+  warp_range(split, len, warp, lo, hi);
+  // this lane's head: the row's own f_dst and m (dden is read at the end)
+  const long long r3 = static_cast<long long>(row) * 3 * heads + hg;
+  const float fd = P.on ? a.fdm3[r3] : 0.f;
+  const float m = P.on ? a.fdm3[r3 + heads] : 0.f;
+  // the row's own gn (kParts: the part's, reloaded per part), packed until
+  // used; acc = sum_s pa * x_s over this lane's columns
+  typename VecIO<XT, V>::Raw go[NV];
+  float acc[NV][V];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    go[k] = L0.on[k] ? VecIO<XT, V>::load(gn + L0.col[k])
+                     : typename VecIO<XT, V>::Raw{};
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[k][i] = 0.f;
   }
-  return cudaGetLastError();
+  float plg = 0.f;    // this lane's share of sum_s p * leaky'
+  float tpart = 0.f;  // kParts: its shares of gn_r . acc, over the parts
+
+  for (int pos = lo; pos < hi && seek(rs, a.row_masks, pos, lane);) {
+    const int end = min(min(pos + 32, hi), rs.base + rs.ch.total);
+    const int nb = end - pos;
+    fill_edge(ws.ed, a, batch_entry(rs, pos, end, lane), rs.ri, lane);
+    __syncwarp();
+    // the x rows of the group's first U edges load beside the pairs'
+    // operands
+    constexpr int U = edges_in_flight(NV * V);
+    typename VecIO<XT, V>::Raw v[U][NV];
+    gather_rows<XT, V, NV, U>(v, x, hf, ws.ed.node, L0.grp, nb, L0);
+    // per (edge, head): p, leaky' and keep; pa = p * keep * leaky'
+    const int rounds = (nb + P.epr - 1) / P.epr;   // at most kSlabHeads
+#pragma unroll (NV == 1 ? 2 : 4)
+    for (int r = 0; r < kSlabHeads; ++r) {
+      const int j = r * P.epr + P.jr;
+      if (r < rounds && P.on && j < nb) {
+        const float pre =
+            fd + a.fs[static_cast<long long>(ws.ed.node[j]) * heads + hg];
+        const float p = ws.ed.w[j] *
+                        expf(fminf(leaky(pre, a.slope) - m, 0.f));
+        const float lg = leaky_grad(pre, a.slope);
+        float keep = 1.f;
+        if (a.dropping) {
+          const int e = ws.ed.e[j];
+          keep = e >= 0 ? a.keep_mul[static_cast<long long>(e) * heads + hg]
+                 : head_keep(ws.ed.word[j], hg, a.thresh) ? a.inv_keep
+                                                          : 0.f;
+        }
+        ws.pa[j * kPStride + P.h] = p * keep * lg;
+        plg += p * lg;
+      }
+    }
+    __syncwarp();
+
+    for (int part = 0; part < parts; ++part) {
+      ColLanes<NV> L = L0;
+      if (kParts) {   // this part's columns, own gn and first gathers
+        if (part > 0) {
+          L = col_lanes<NV>(slab_of(blockIdx.y * parts + part, heads, a.vph,
+                                    a.slab_heads, parts),
+                            lane, a.lpe, a.vph, V);
+          gather_rows<XT, V, NV, U>(v, x, hf, ws.ed.node, L.grp, nb, L);
+        }
+#pragma unroll
+        for (int k = 0; k < NV; ++k)
+          go[k] = L.on[k] ? VecIO<XT, V>::load(gn + L.col[k])
+                          : typename VecIO<XT, V>::Raw{};
+      }
+      // per column, the whole warp: acc += pa * x_s, U edges at a time
+      for (int j = L.grp;;) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int jj = j + u * L.ngrp;
+#pragma unroll
+          for (int k = 0; k < NV; ++k) {
+            const float pw =
+                jj < nb && L.on[k] ? ws.pa[jj * kPStride + L.hk[k]] : 0.f;
+            float f[V];
+            VecIO<XT, V>::unpack(v[u][k], f);
+#pragma unroll
+            for (int i = 0; i < V; ++i) acc[k][i] += pw * f[i];
+          }
+        }
+        j += L.ngrp * U;
+        if (j >= nb) break;
+        gather_rows<XT, V, NV, U>(v, x, hf, ws.ed.node, j, nb, L);
+      }
+      if (kParts) {   // the part's shares, and acc back to zero
+#pragma unroll
+        for (int k = 0; k < NV; ++k) {
+          tpart += row_dot<XT, V>(acc[k], go[k]);
+#pragma unroll
+          for (int i = 0; i < V; ++i) acc[k][i] = 0.f;
+        }
+      }
+    }
+    __syncwarp();
+    pos = end;
+  }
+
+  // per head: the shares gn_r . acc of the head's lanes, tagged by head (a
+  // vector outside the slab holds a zero share; kParts: one head), and the
+  // dden term
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    ws.red[lane * NV + k] = kParts ? (k == 0 ? tpart : 0.f)
+                                   : row_dot<XT, V>(acc[k], go[k]);
+    ws.red_head[lane * NV + k] = L0.hk[k];
+  }
+  __syncwarp();
+  float dfd = P.on ? plg * a.fdm3[r3 + 2 * heads] : 0.f;
+  if (P.on)
+    for (int i = P.jr; i < 32 * NV; i += P.epr)
+      if (ws.red_head[i] == P.h) dfd += ws.red[i];
+  dfd = head_sum(dfd, P);
+
+  if (split) {   // combine the warps' partials in warp order
+    if (P.on && P.jr == 0) split_dfd[warp][P.h] = dfd;
+    __syncthreads();
+    if (warp != 0) return;
+    dfd = 0.f;
+    if (P.on)
+      for (int q = 0; q < kWarps; ++q) dfd += split_dfd[q][P.h];
+  }
+  if (P.on && P.jr == 0) a.dfd[row * heads + hg] = dfd;
 }
 
 struct BwdBArgs {
@@ -424,80 +546,123 @@ __global__ void __launch_bounds__(kWarps * 32, NV == 1 ? 4 : kMinBlocks)
     a.dfs[row * heads + S0.h0 + P.h] = dfs_row;
 }
 
+// Each pass's kernel instances, for the launch helpers below: kScalars is
+// the most scalars a lane holds (attend_common.attend_layout; K5's
+// WIDE_SCALARS_PER_LANE), which a head of scalars split into parts takes.
+struct PassA {
+  using Args = BwdAArgs;
+  static constexpr int kScalars = 8;
+  template <typename XT, int V, int NV, bool kParts>
+  static void run(const Args& a, dim3 grid, cudaStream_t stream) {
+    attend_bwd_a_kernel<XT, V, NV, kParts>
+        <<<grid, kWarps * 32, 0, stream>>>(a);
+  }
+};
+
+struct PassB {
+  using Args = BwdBArgs;
+  static constexpr int kScalars = 4;
+  template <typename XT, int V, int NV, bool kParts>
+  static void run(const Args& a, dim3 grid, cudaStream_t stream) {
+    attend_bwd_b_kernel<XT, V, NV, kParts>
+        <<<grid, kWarps * 32, 0, stream>>>(a);
+  }
+};
+
 // A head splits into parts only where a lane holds the most it can
-// (attend_common.attend_layout): nv * V == 16, or four scalars.
-template <typename XT, int V, int NV>
-cudaError_t launch_b_one(const BwdBArgs& a, dim3 grid, cudaStream_t stream) {
-  const dim3 block(kWarps * 32);
+// (attend_common.attend_layout): nv * V == 16, or Pass::kScalars scalars.
+template <typename Pass, typename XT, int V, int NV>
+cudaError_t launch_one(const typename Pass::Args& a, dim3 grid,
+                       cudaStream_t stream) {
   if (a.parts == 1)
-    attend_bwd_b_kernel<XT, V, NV, false><<<grid, block, 0, stream>>>(a);
-  else if constexpr (NV * V == 16 || (V == 1 && NV == 4))
-    attend_bwd_b_kernel<XT, V, NV, true><<<grid, block, 0, stream>>>(a);
+    Pass::template run<XT, V, NV, false>(a, grid, stream);
+  else if constexpr (NV * V == 16 || (V == 1 && NV == Pass::kScalars))
+    Pass::template run<XT, V, NV, true>(a, grid, stream);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
-template <typename XT, int V>
-cudaError_t launch_b_nv(const BwdBArgs& a, int nv, dim3 grid,
-                        cudaStream_t stream) {
+template <typename Pass, typename XT, int V>
+cudaError_t launch_nv(const typename Pass::Args& a, int nv, dim3 grid,
+                      cudaStream_t stream) {
   switch (nv) {
-    case 1: return launch_b_one<XT, V, 1>(a, grid, stream);
-    case 2: return launch_b_one<XT, V, 2>(a, grid, stream);
+    case 1: return launch_one<Pass, XT, V, 1>(a, grid, stream);
+    case 2: return launch_one<Pass, XT, V, 2>(a, grid, stream);
     case 4:
-      if constexpr (V * 4 <= 16) return launch_b_one<XT, V, 4>(a, grid, stream);
+      if constexpr (V * 4 <= 16)
+        return launch_one<Pass, XT, V, 4>(a, grid, stream);
+      return cudaErrorInvalidValue;
+    case 8:
+      if constexpr (V == 1 && Pass::kScalars == 8)
+        return launch_one<Pass, XT, V, 8>(a, grid, stream);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename XT>
-cudaError_t launch_b(const BwdBArgs& a, int vec, int nv, int n_slabs,
-                     cudaStream_t stream) {
+template <typename Pass, typename XT>
+cudaError_t launch(const typename Pass::Args& a, int vec, int nv,
+                   int n_slabs, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(XT);
   const dim3 grid(a.n_long + (a.n + kWarps - 1) / kWarps, n_slabs);
-  if (vec == kVec) return launch_b_nv<XT, kVec>(a, nv, grid, stream);
-  if (vec == 1) return launch_b_nv<XT, 1>(a, nv, grid, stream);
+  if (vec == kVec) return launch_nv<Pass, XT, kVec>(a, nv, grid, stream);
+  if (vec == 1) return launch_nv<Pass, XT, 1>(a, nv, grid, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace gnn_attend
 
-// Pass A: dfd [n, heads] over the forward tiles and the receiver-sorted
-// remainder (rem_senders, rem_row_ptr, rem_w). x_bf16 / tile_bf16: 0 =
-// float32, 1 = bfloat16; cpl: columns per lane, one of 1, 2, 4, 8, 16, 32,
-// with cpl * (32 / heads rounded up to a power of two) >= feat. Returns
+// Pass A: dfd [n, heads] over the forward tiles (their row_masks) and the
+// receiver-sorted remainder (rem_senders, rem_row_ptr, rem_w). x_bf16 /
+// tile_bf16: 0 = float32, 1 = bfloat16. The column layout (vec, nv, lpe,
+// slab_heads, parts) is gnn_attend_online's; the grid takes the slabs of
+// whole heads, or with parts > 1 the heads, whose parts each warp walks in
+// turn. row_edges: each receiver row's edges; long_rows: the n_long
+// receiver rows with more than long_edges of them (both from HybridGraph,
+// forward side). bits and keep_mul are read only when dropping. Returns
 // the launch's cudaError_t.
 extern "C" int gnn_attend_bwd_a(
     const void* x, const void* gn, const void* fs, const void* fdm3,
     const void* tiles, const void* bits, const void* col_ids,
-    const void* tile_off, const void* tile_cnt, const void* rem_senders,
-    const void* rem_row_ptr, const void* rem_w, const void* keep_mul,
+    const void* tile_off, const void* tile_cnt, const void* row_masks,
+    const void* rem_senders, const void* rem_row_ptr, const void* rem_w,
+    const void* keep_mul, const void* row_edges, const void* long_rows,
     void* dfd, int n, int heads, int feat, int x_bf16, int tile_bf16,
-    int cpl, float slope, float inv_keep, unsigned thresh, int dropping,
-    void* stream) {
+    int vec, int nv, int lpe, int slab_heads, int parts, int n_long,
+    int long_edges, float slope, float inv_keep, unsigned thresh,
+    int dropping, void* stream) {
   using namespace gnn_attend;
   if (n <= 0) return 0;
-  if (!layout_ok(heads, feat, cpl))
+  if (!slab_ok(heads, feat, vec, nv, lpe, slab_heads, parts) ||
+      (n_long > 0 && (long_rows == nullptr || row_edges == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  BwdArgs a{x, gn,
-            static_cast<const float*>(fs),
-            static_cast<const float*>(fdm3),
-            tiles,
-            static_cast<const int*>(bits),
-            static_cast<const int*>(col_ids),
-            static_cast<const int*>(tile_off),
-            static_cast<const int*>(tile_cnt),
-            static_cast<const int*>(rem_senders),
-            static_cast<const int*>(rem_row_ptr),
-            static_cast<const float*>(rem_w),
-            static_cast<const float*>(keep_mul),
-            static_cast<float*>(dfd),
-            n, heads, feat, tile_bf16, dropping, slope, inv_keep, thresh};
+  BwdAArgs a{x, gn,
+             static_cast<const float*>(fs),
+             static_cast<const float*>(fdm3),
+             tiles,
+             static_cast<const int*>(bits),
+             static_cast<const int*>(col_ids),
+             static_cast<const int*>(tile_off),
+             static_cast<const int*>(tile_cnt),
+             static_cast<const int*>(row_masks),
+             static_cast<const int*>(rem_senders),
+             static_cast<const int*>(rem_row_ptr),
+             static_cast<const float*>(rem_w),
+             static_cast<const float*>(keep_mul),
+             static_cast<const int*>(row_edges),
+             static_cast<const int*>(long_rows),
+             static_cast<float*>(dfd),
+             n, heads, feat, tile_bf16, dropping,
+             feat / vec, lpe, slab_heads, parts, n_long, long_edges,
+             slope, inv_keep, thresh};
+  const int n_slabs = parts > 1 ? heads
+                                : (heads + slab_heads - 1) / slab_heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(x_bf16 ? launch_a<__nv_bfloat16>(a, cpl, s)
-                                 : launch_a<float>(a, cpl, s));
+  return static_cast<int>(
+      x_bf16 ? launch<PassA, __nv_bfloat16>(a, vec, nv, n_slabs, s)
+             : launch<PassA, float>(a, vec, nv, n_slabs, s));
 }
 
 // Pass B: dx [n, heads*feat] (x's type) and dfs [n, heads] over the
@@ -551,7 +716,7 @@ extern "C" int gnn_attend_bwd_b(
   const int n_slabs = parts > 1 ? heads
                                 : (heads + slab_heads - 1) / slab_heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(x_bf16
-                              ? launch_b<__nv_bfloat16>(a, vec, nv, n_slabs, s)
-                              : launch_b<float>(a, vec, nv, n_slabs, s));
+  return static_cast<int>(
+      x_bf16 ? launch<PassB, __nv_bfloat16>(a, vec, nv, n_slabs, s)
+             : launch<PassB, float>(a, vec, nv, n_slabs, s));
 }

@@ -1,14 +1,16 @@
 // Helpers shared by the hybrid GAT attend kernels (attend_online_kernel.cu,
-// attend_bwd_kernel.cu), for Hopper (sm_90a).
+// attend_bwd_kernel.cu, attend_parts_kernel.cu), for Hopper (sm_90a).
 //
-// All three kernels give one warp to one row of the hybrid layout
-// (core/bcsr.py): a receiver row (forward, pass A) or a sender row (pass B).
-// The warp's lanes split into one group per head: G = 32 / Hp lanes each,
-// Hp the head count rounded up to a power of two. Lane g of head h's group
-// owns the feature columns f = g + G*j (j < CPL) of that head, computes the
-// head's per-edge scalars (score, softmax weight, dropout mask) itself, and
-// the group sums a per-head dot product with log2(G) xor shuffles. No
-// column needs another lane's value, so no shuffle runs per column.
+// The lane groups (Lanes, lane_layout, windows) are the layout of K8-K10,
+// which give one warp to one receiver row of the hybrid layout
+// (core/bcsr.py); K4-K6 walk rows in slabs (attend_walk.cuh). The warp's
+// lanes split into one group per head: G = 32 / Hp lanes each, Hp the head
+// count rounded up to a power of two. Lane g of head h's group owns the
+// feature columns f = c0 + g + G*j (j < CPL) of that head, c0 its warp's
+// window (0, unless the head is wider than G * 32 columns: then each
+// window of G * 32 takes a warp), and computes the head's per-edge scalars
+// (score, softmax weight, dropout mask) itself. No column needs another
+// lane's value, so no shuffle runs per column.
 
 #pragma once
 
@@ -30,17 +32,6 @@ constexpr unsigned kFull = 0xffffffffu;
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
 }
 
 __device__ __forceinline__ float leaky(float v, float slope) {
@@ -87,20 +78,15 @@ __device__ __forceinline__ Lanes lane_layout(int lane, int heads) {
   return {head < heads ? head : 0, lane % group, group, head < heads};
 }
 
-// Sum of v over the lanes of this lane's head group (a power-of-two block
-// of lanes), in every lane of the group.
-__device__ __forceinline__ float group_sum(float v, int group) {
-  for (int off = group >> 1; off > 0; off >>= 1)
-    v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-// The group size and columns per lane agree with heads and feat.
-__host__ __forceinline__ bool layout_ok(int heads, int feat, int cpl) {
-  if (heads < 1 || heads > 32 || feat < 1) return false;
+// Windows of (32 / Hp) * cpl columns that cover a head of feat columns
+// (Hp: heads rounded up to a power of two); 0 where heads or cpl is not
+// one the kernels take.
+__host__ __forceinline__ int windows(int heads, int feat, int cpl) {
+  if (heads < 1 || heads > 32 || feat < 1 || cpl < 1 || cpl > 32) return 0;
   int padded = 1;
   while (padded < heads) padded <<= 1;
-  return (32 / padded) * cpl >= feat;
+  const int width = (32 / padded) * cpl;
+  return (feat + width - 1) / width;
 }
 
 }  // namespace gnn_attend

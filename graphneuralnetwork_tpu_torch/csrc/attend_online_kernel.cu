@@ -96,31 +96,6 @@ struct BatchScratch {
   float scale[kSlabHeads];
 };
 
-// Per edge, one lane: the sender, weight and dropout word of entry `en` of
-// row `ri` of its row block.
-__device__ __forceinline__ void fill_edge(EdgeScratch& ed,
-                                          const OnlineArgs& a,
-                                          const Entry& en, int ri, int lane) {
-  if (!en.valid) return;
-  int src;
-  float w;
-  uint32_t word = 0u;
-  if (en.rem) {
-    src = a.rem_senders[en.e];
-    w = a.rem_w[en.e];
-  } else {
-    const long long slot =
-        (static_cast<long long>(en.t) * kRowBlock + ri) * kColBlock + en.col;
-    src = a.col_ids[en.t] * kColBlock + en.col;
-    w = tile_val(a.tiles, a.tile_bf16, slot);
-    if (a.dropping) word = static_cast<uint32_t>(a.bits[slot]);
-  }
-  ed.node[lane] = src;
-  ed.w[lane] = w;
-  ed.word[lane] = word;
-  ed.e[lane] = en.rem ? en.e : -1;
-}
-
 // Per (edge, head) of a batch of nb edges: the scores, the batch max, the
 // online rescale of this lane's running max mx and den share, and p * keep
 // and each head's rescale factor into the scratch. kUnroll rounds' loads

@@ -41,12 +41,14 @@
 //
 // Bound: bytes, once per edge a gathered x row ([H*F] values) and for K9/K10
 // once per tile the receiver's 128-slot tile row (and lattice row); one exp
-// per (edge, head) and 2 flops per (edge, column). Design for it: as in K4,
-// each head's lane group reads its F columns of a gathered x row as adjacent
-// runs and needs no other lane's value (attend_common.cuh); float32 sums in
-// registers, no atomics, a fixed edge order, deterministic. A hub row
-// serialises on its warp; tensor cores, TMA and hub-row splitting are later
-// work.
+// per (edge, head) and 2 flops per (edge, column). Design for it: as K4's
+// first design, each head's lane group reads its F columns of a gathered x
+// row as adjacent runs and needs no other lane's value (attend_common.cuh);
+// a head wider than the group's 32 columns a lane is walked in windows of
+// that width, one warp a (row, window), each a walk of the row's edges (p
+// recomputed, den written once); float32 sums in registers, no atomics, a
+// fixed edge order, deterministic. A hub row serialises on its warp;
+// tensor cores, TMA and hub-row splitting are later work.
 
 #include "attend_common.cuh"
 
@@ -76,9 +78,11 @@ struct PartsArgs {
   int n, heads, feat, tile_bf16, dropping;
   float slope, inv_keep;
   uint32_t thresh;
+  int windows;             // windows of a head (kWindows), else 1
 };
 
-// acc[j] += pn * x_s[f] for this lane's columns f of its head.
+// acc[j] += pn * x_s[f] for this lane's columns f of its head (of its
+// window, below feat).
 template <typename XT, int CPL>
 __device__ __forceinline__ void accumulate(float (&acc)[CPL], float pn,
                                            const XT* xs, const Lanes& L,
@@ -90,16 +94,25 @@ __device__ __forceinline__ void accumulate(float (&acc)[CPL], float pn,
   }
 }
 
-template <typename XT, int CPL, int MODE>
+// kWindows: a head wider than the lane group's CPL columns a lane (then
+// CPL == 32) is walked in a.windows windows of that width, one warp a
+// (row, window), each recomputing p; the window at c0 = 0 writes den. A
+// template switch, so that the one-window instances keep their code
+// (c0 is 0 there).
+template <typename XT, int CPL, int MODE, bool kWindows>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
     attend_parts_kernel(PartsArgs a) {
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int warp_id = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int row = kWindows ? warp_id / a.windows : warp_id;
   if (row >= a.n) return;   // uniform per warp
   const Lanes L = lane_layout(threadIdx.x & 31, a.heads);
   const int heads = a.heads, feat = a.feat, h = L.head;
+  const int c0 = kWindows ? warp_id % a.windows * L.group * CPL : 0;
+  const int wfeat = feat - c0;   // the head's columns from the window's
   const long long hf = static_cast<long long>(heads) * feat;
-  const XT* x = static_cast<const XT*>(a.x) + h * feat;   // head h's columns
-  const long long out_base = row * hf + h * feat;
+  // head h's columns, from the window's first
+  const XT* x = static_cast<const XT*>(a.x) + h * feat + c0;
+  const long long out_base = row * hf + h * feat + c0;
   const float fd = a.fd[row * heads + h];
   const float m = a.m[row * heads + h];
 
@@ -108,7 +121,7 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 #pragma unroll
   for (int j = 0; j < CPL; ++j) {
     const int f = L.sub + L.group * j;
-    acc[j] = MODE == kFused && L.active && f < feat
+    acc[j] = MODE == kFused && L.active && f < wfeat
                  ? a.num_init[out_base + f]
                  : 0.f;
   }
@@ -124,7 +137,7 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
       const float pn =
           a.dropping ? p * a.keep_mul[static_cast<long long>(e) * heads + h]
                      : p;
-      accumulate<XT, CPL>(acc, pn, x + s * hf, L, feat);
+      accumulate<XT, CPL>(acc, pn, x + s * hf, L, wfeat);
     }
   } else {
     // a row block without tiles runs no iteration: K10 still writes the
@@ -155,45 +168,50 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
           const float pn = !a.dropping ? p
                            : head_keep(b, h, a.thresh) ? p * a.inv_keep
                                                        : 0.f;
-          accumulate<XT, CPL>(acc, pn, x + s * hf, L, feat);
+          accumulate<XT, CPL>(acc, pn, x + s * hf, L, wfeat);
         }
       }
     }
   }
 
   if (!L.active) return;
-  if (L.sub == 0) a.den[row * heads + h] = den;
+  if (L.sub == 0 && c0 == 0) a.den[row * heads + h] = den;
   // K10 divides in-register by the clamped mass; den stays raw
   const float d = MODE == kFused ? fmaxf(den, 1e-16f) : 1.f;
   float* out = a.num + out_base;
 #pragma unroll
   for (int j = 0; j < CPL; ++j) {
     const int f = L.sub + L.group * j;
-    if (f < feat) out[f] = MODE == kFused ? acc[j] / d : acc[j];
+    if (f < wfeat) out[f] = MODE == kFused ? acc[j] / d : acc[j];
   }
 }
 
 template <typename XT, int MODE>
 cudaError_t launch_typed(const PartsArgs& a, int cpl, cudaStream_t stream) {
-  const dim3 grid((a.n + kWarps - 1) / kWarps), block(kWarps * 32);
+  const dim3 grid((a.n * a.windows + kWarps - 1) / kWarps),
+      block(kWarps * 32);
   switch (cpl) {
     case 1:
-      attend_parts_kernel<XT, 1, MODE><<<grid, block, 0, stream>>>(a);
+      attend_parts_kernel<XT, 1, MODE, false><<<grid, block, 0, stream>>>(a);
       break;
     case 2:
-      attend_parts_kernel<XT, 2, MODE><<<grid, block, 0, stream>>>(a);
+      attend_parts_kernel<XT, 2, MODE, false><<<grid, block, 0, stream>>>(a);
       break;
     case 4:
-      attend_parts_kernel<XT, 4, MODE><<<grid, block, 0, stream>>>(a);
+      attend_parts_kernel<XT, 4, MODE, false><<<grid, block, 0, stream>>>(a);
       break;
     case 8:
-      attend_parts_kernel<XT, 8, MODE><<<grid, block, 0, stream>>>(a);
+      attend_parts_kernel<XT, 8, MODE, false><<<grid, block, 0, stream>>>(a);
       break;
     case 16:
-      attend_parts_kernel<XT, 16, MODE><<<grid, block, 0, stream>>>(a);
+      attend_parts_kernel<XT, 16, MODE, false><<<grid, block, 0, stream>>>(a);
       break;
     case 32:
-      attend_parts_kernel<XT, 32, MODE><<<grid, block, 0, stream>>>(a);
+      if (a.windows > 1)
+        attend_parts_kernel<XT, 32, MODE, true><<<grid, block, 0, stream>>>(a);
+      else
+        attend_parts_kernel<XT, 32, MODE, false>
+            <<<grid, block, 0, stream>>>(a);
       break;
     default: return cudaErrorInvalidValue;
   }
@@ -201,9 +219,10 @@ cudaError_t launch_typed(const PartsArgs& a, int cpl, cudaStream_t stream) {
 }
 
 template <int MODE>
-int launch(const PartsArgs& a, int x_bf16, int cpl, void* stream) {
+int launch(PartsArgs a, int x_bf16, int cpl, void* stream) {
   if (a.n <= 0) return 0;
-  if (!layout_ok(a.heads, a.feat, cpl))
+  a.windows = windows(a.heads, a.feat, cpl);
+  if (a.windows < 1 || (a.windows > 1 && cpl != 32))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(x_bf16 ? launch_typed<__nv_bfloat16, MODE>(a, cpl, s)
@@ -236,7 +255,8 @@ PartsArgs common_args(const void* x, const void* fs, const void* fd,
 
 // The trailing scalars of every entry: x_bf16 / tile_bf16: 0 = float32,
 // 1 = bfloat16; cpl: columns per lane, one of 1, 2, 4, 8, 16, 32, with
-// cpl * (lanes per head) >= feat; heads <= 32. keep_mul (K8) and bits (K9,
+// cpl * (lanes per head) >= feat, or 32 for a head wider than that, which
+// is walked in windows; heads <= 32. keep_mul (K8) and bits (K9,
 // K10) are read only when dropping. Each returns the launch's cudaError_t.
 
 extern "C" int gnn_rem_attend(

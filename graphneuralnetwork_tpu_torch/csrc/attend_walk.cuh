@@ -1,14 +1,14 @@
 // The row walk of the redesigned hybrid attend kernels K4
-// (attend_online_kernel.cu) and K6 (pass B of attend_bwd_kernel.cu), for
-// Hopper (sm_90a).
+// (attend_online_kernel.cu), K5 and K6 (passes A and B of
+// attend_bwd_kernel.cu), for Hopper (sm_90a).
 //
-// A work item is one row of the hybrid layout (K4: a receiver row of the
-// forward tiles and the receiver-sorted remainder; K6: a sender row of the
-// transpose tiles and the sender-sorted remainder) times one slab of its
-// columns. The host picks the slab (ops/cuda/attend_common.py:
+// A work item is one row of the hybrid layout (K4 and K5: a receiver row of
+// the forward tiles and the receiver-sorted remainder; K6: a sender row of
+// the transpose tiles and the sender-sorted remainder) times one slab of
+// its columns. The host picks the slab (ops/cuda/attend_common.py:
 // attend_layout): whole heads, at most kSlabHeads of them and at most 16
 // columns a lane, or one part of a head wider than a warp holds (K4 takes
-// the parts on the grid, K6 in turn on one warp).
+// the parts on the grid, K5 and K6 in turn on one warp).
 // The row's edges form one stream: its remainder edges, then the nonzero
 // slots of its tile rows, tile by tile, columns ascending. A warp takes the
 // stream 32 entries at a time, in three steps:
@@ -47,13 +47,16 @@ constexpr int kChunkTiles = 8;             // tiles of one mask chunk
 constexpr int kMaxSlabCols = 512;          // 32 lanes x 16 columns
 
 // The column layout agrees with heads and feat: vectors of vec elements,
-// nv of them a lane (nv * vec <= 16 columns), lpe lanes an edge; a slab of
+// nv of them a lane (nv * vec <= 16 columns; nv = 8 only of scalars, which
+// K5 alone takes), lpe lanes an edge; a slab of
 // slab_heads whole heads, or (parts > 1) one part of a head, fits the
 // lpe * nv vectors of a group.
 __host__ inline bool slab_ok(int heads, int feat, int vec, int nv, int lpe,
                              int slab_heads, int parts) {
   if (heads < 1 || heads > 32 || feat < 1 || vec < 1 || feat % vec) return false;
-  if ((nv != 1 && nv != 2 && nv != 4) || nv * vec > 16) return false;
+  if ((nv != 1 && nv != 2 && nv != 4 && !(nv == 8 && vec == 1)) ||
+      nv * vec > 16)
+    return false;
   if (lpe < 1 || lpe > 32 || (lpe & (lpe - 1))) return false;
   const int vph = feat / vec;
   if (parts == 1)
@@ -364,6 +367,33 @@ struct EdgeScratch {
 
 __device__ __forceinline__ bool edge_live(const EdgeScratch& ed, int j) {
   return ed.e[j] < 0 || ed.w[j] > 0.f;
+}
+
+// Per edge, one lane, over the forward layout (K4 and K5): the sender,
+// weight and dropout word of entry `en` of row `ri` of its row block. Args
+// holds the forward operands: rem_senders, rem_w, col_ids, tiles,
+// tile_bf16, bits (the forward lattice) and dropping.
+template <typename Args>
+__device__ __forceinline__ void fill_edge(EdgeScratch& ed, const Args& a,
+                                          const Entry& en, int ri, int lane) {
+  if (!en.valid) return;
+  int src;
+  float w;
+  uint32_t word = 0u;
+  if (en.rem) {
+    src = a.rem_senders[en.e];
+    w = a.rem_w[en.e];
+  } else {
+    const long long slot =
+        (static_cast<long long>(en.t) * kRowBlock + ri) * kColBlock + en.col;
+    src = a.col_ids[en.t] * kColBlock + en.col;
+    w = tile_val(a.tiles, a.tile_bf16, slot);
+    if (a.dropping) word = static_cast<uint32_t>(a.bits[slot]);
+  }
+  ed.node[lane] = src;
+  ed.w[lane] = w;
+  ed.word[lane] = word;
+  ed.e[lane] = en.rem ? en.e : -1;
 }
 
 // Lanes of the per-(edge, head) phase: lane l takes head l % hp of the

@@ -19,13 +19,18 @@ den``), every edge s -> r recomputes ``p = w * exp(min(LeakyReLU(f_dst[r]
 ``hg.rem_t_eperm``. They replace the TPU kernels ``_bwd_a_kernel`` and
 ``_bwd_b_kernel`` of ``graphneuralnetwork_tpu/ops/pallas/attend_bwd_kernel.py``
 (``attend_bwd_a_pallas``, ``attend_bwd_b_pallas``); the design notes are in
-the CUDA source. Pass B walks each sender row as K4 walks a receiver row
+the CUDA source. Both passes walk each row as K4 walks a receiver row
 (``csrc/attend_walk.cuh``, ``attend_common.attend_layout``,
-``HybridGraph.row_edges`` and ``long_rows``), a slab of whole heads at a
-time; a head wider than one warp holds (512 features of 16-byte vectors,
-128 of scalars) splits into parts that the row's warp walks in turn. A CUDA tensor launches the kernel; a CPU tensor takes
-``attend_bwd_a_plain`` / ``attend_bwd_b_plain``, which compute the same
-passes from the same operands without autograd.
+``HybridGraph.row_edges`` and ``long_rows``: pass A the forward side, pass
+B the transpose side), a slab of whole heads at a time. Pass A sums
+``p * keep * leaky' * x[s]`` over each row's edges and dots it with the
+row's own ``gn`` once, since ``dfd`` is linear in ``x[s]``. A head wider
+than one warp holds (512 features of 16-byte vectors; 256 scalars in
+pass A, 128 in pass B) splits into parts: pass A walks each batch of a row
+part by part, pass B the row part by part. ``bwd_a_args`` builds
+pass A's launch arguments. A CUDA tensor launches the kernel; a CPU tensor
+takes ``attend_bwd_a_plain`` / ``attend_bwd_b_plain``, which compute the
+same passes from the same operands without autograd.
 ``attend_bwd_a.launches`` and ``attend_bwd_b.launches`` count launches.
 """
 
@@ -38,8 +43,9 @@ import torch
 
 from ...core.bcsr import HybridGraph
 from .attend_common import (LONG_ROW_EDGES, SCALAR_ARGTYPES,
-                            check_operands, edge_chunks, keep_factors,
-                            leaky, leaky_grad, ptr, scalar_args, tile_slots,
+                            WIDE_SCALARS_PER_LANE, check_operands,
+                            cuda_stream, edge_chunks, keep_factors, leaky,
+                            leaky_grad, ptr, scalar_args, tile_slots,
                             walk_layout)
 from .attend_online_kernel import forward_edges
 from .build import check, load
@@ -119,11 +125,12 @@ def attend_bwd_b_plain(hg: HybridGraph, x: torch.Tensor, gn: torch.Tensor,
     return dx.reshape(n, hf).to(x.dtype), dfs
 
 
-#: both entries of the one library, declared at its first load; pass B
-#: takes n, heads, feat, x_bf16, tile_bf16, the column layout (vec, nv,
-#: lpe, slab_heads, parts), n_long and long_edges before the trailing
-#: scalars
-_ENTRIES = {"gnn_attend_bwd_a": [ctypes.c_void_p] * 14 + SCALAR_ARGTYPES,
+#: both entries of the one library, declared at its first load: pointers,
+#: then n, heads, feat, x_bf16, tile_bf16, the column layout (vec, nv,
+#: lpe, slab_heads, parts), n_long and long_edges, then the trailing
+#: slope, inv_keep, thresh, dropping, stream
+_ENTRIES = {"gnn_attend_bwd_a": [ctypes.c_void_p] * 17 + [ctypes.c_int] * 12
+            + SCALAR_ARGTYPES[-5:],
             "gnn_attend_bwd_b": [ctypes.c_void_p] * 20 + [ctypes.c_int] * 12
             + SCALAR_ARGTYPES[-5:]}
 
@@ -140,6 +147,31 @@ def _prepare(name, hg, x, gn, f_src, fdm3, bits, keep_mul, keep_prob):
     return heads, dropping
 
 
+def bwd_a_args(hg: HybridGraph, x: torch.Tensor, gn: torch.Tensor,
+               f_src: torch.Tensor, fdm3: torch.Tensor,
+               bits: Optional[torch.Tensor],
+               keep_mul: Optional[torch.Tensor], dfd: torch.Tensor,
+               slope: float, keep_prob: float, stream: int) -> list:
+    """``gnn_attend_bwd_a``'s arguments (``_ENTRIES``): the forward layout,
+    its row lengths and long rows, and the column layout of ``x`` and
+    ``gn`` (``walk_layout``, a wide head of scalars in parts of up to
+    ``WIDE_SCALARS_PER_LANE`` a lane)."""
+    heads = f_src.shape[1]
+    bg, rem = hg.bcsr, hg.rem
+    lay = walk_layout(heads, x, gn, wide_scalars=WIDE_SCALARS_PER_LANE)
+    long_rows = hg.long_rows[0]
+    scalars = scalar_args(x, bg.tiles, heads, slope, keep_prob,
+                          keep_prob < 1.0, stream, cpl=False)
+    return [x.data_ptr(), gn.data_ptr(), f_src.data_ptr(), fdm3.data_ptr(),
+            bg.tiles.data_ptr(), ptr(bits), bg.col_ids.data_ptr(),
+            bg.tile_off.data_ptr(), bg.tile_cnt.data_ptr(),
+            bg.row_masks.data_ptr(), rem.senders.data_ptr(),
+            rem.row_ptr.data_ptr(), rem.edge_weight.data_ptr(),
+            ptr(keep_mul), hg.row_edges[0].data_ptr(), long_rows.data_ptr(),
+            dfd.data_ptr(), *scalars[:5], *lay.args(), lay.parts,
+            long_rows.numel(), LONG_ROW_EDGES, *scalars[-5:]]
+
+
 def attend_bwd_a(hg: HybridGraph, x: torch.Tensor, gn: torch.Tensor,
                  f_src: torch.Tensor, fdm3: torch.Tensor,
                  bits: Optional[torch.Tensor],
@@ -148,23 +180,17 @@ def attend_bwd_a(hg: HybridGraph, x: torch.Tensor, gn: torch.Tensor,
     if x.device.type == "cpu":
         return attend_bwd_a_plain(hg, x, gn, f_src, fdm3, bits, keep_mul,
                                   slope, keep_prob)
-    heads, dropping = _prepare("attend_bwd_a", hg, x, gn, f_src, fdm3, bits,
-                               keep_mul, keep_prob)
+    heads, _ = _prepare("attend_bwd_a", hg, x, gn, f_src, fdm3, bits,
+                        keep_mul, keep_prob)
     dfd = torch.empty(x.shape[0], heads, dtype=torch.float32,
                       device=x.device)
     if x.shape[0] == 0:
         return dfd
-    bg, rem = hg.bcsr, hg.rem
+    args = bwd_a_args(hg, x, gn, f_src, fdm3, bits, keep_mul, dfd, slope,
+                      keep_prob, cuda_stream(x))
     lib = load("attend_bwd_kernel", _ENTRIES)
     with torch.cuda.device(x.device):
-        err = lib.gnn_attend_bwd_a(
-            x.data_ptr(), gn.data_ptr(), f_src.data_ptr(), fdm3.data_ptr(),
-            bg.tiles.data_ptr(), ptr(bits),
-            bg.col_ids.data_ptr(), bg.tile_off.data_ptr(),
-            bg.tile_cnt.data_ptr(), rem.senders.data_ptr(),
-            rem.row_ptr.data_ptr(), rem.edge_weight.data_ptr(),
-            ptr(keep_mul), dfd.data_ptr(),
-            *scalar_args(x, bg.tiles, heads, slope, keep_prob, dropping))
+        err = lib.gnn_attend_bwd_a(*args)
     check(lib, err, "attend_bwd_a kernel launch")
     attend_bwd_a.launches += 1
     return dfd
@@ -189,7 +215,7 @@ def attend_bwd_b(hg: HybridGraph, x: torch.Tensor, gn: torch.Tensor,
     lay = walk_layout(heads, x, gn, dx)
     long_rows = hg.long_rows[1]
     scalars = scalar_args(x, bg_t.tiles, heads, slope, keep_prob, dropping,
-                          cpl=False)
+                          cuda_stream(x), cpl=False)
     lib = load("attend_bwd_kernel", _ENTRIES)
     with torch.cuda.device(x.device):
         err = lib.gnn_attend_bwd_b(

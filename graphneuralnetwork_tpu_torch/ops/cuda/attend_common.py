@@ -4,8 +4,9 @@ share.
 The dropout hash (``head_keep``) and its constants, the edge lists that the
 plain versions build from the hybrid layout, the softmax partials over such
 a list (``softmax_parts``), the checks and launch arguments of the
-wrappers, and the column layout of K4's and K6's row walk
-(``attend_layout``, ``csrc/attend_walk.cuh``). Pure PyTorch: nothing here
+wrappers, the column layout of K4-K6's row walk (``attend_layout``,
+``csrc/attend_walk.cuh``) and K8-K10's columns per lane
+(``columns_per_lane``). Pure PyTorch: nothing here
 builds or loads a kernel.
 """
 
@@ -23,16 +24,22 @@ from ...core.bcsr import (COL_BLOCK, LONG_ROW_EDGES, ROW_BLOCK, BCSRGraph,
 
 NEG = -1e30  # "-inf" stand-in that survives float32 arithmetic
 _MASK32 = 0xFFFFFFFF
-#: Columns per lane the kernels are compiled for.
+#: Columns per lane (of a window) K8-K10 are compiled for.
 CPL_CHOICES = (1, 2, 4, 8, 16, 32)
 #: Elements of a per-edge [E, H*F] temporary of the plain versions.
 PLAIN_CHUNK_ELEMENTS = 1 << 26
-#: K4's and K6's row walk (``csrc/attend_walk.cuh``): heads of a slab at
+#: K4-K6's row walk (``csrc/attend_walk.cuh``): heads of a slab at
 #: most (``kSlabHeads``), vectors a lane holds at most, columns a lane holds
 #: at most.
 SLAB_HEADS = 8
 MAX_VECS_PER_LANE = 4
 MAX_COLS_PER_LANE = 16
+#: Scalars a lane of K5 holds at most for a head wider than
+#: ``MAX_VECS_PER_LANE`` scalars a lane cover, before the head splits into
+#: parts: K5 walks a head's parts within each batch, so each part gathers
+#: the batch's edges again (on an H100 one head of 251 scalars took 26.1 µs
+#: in two parts of four a lane and 24.2 in one part of eight: PERF.md §6).
+WIDE_SCALARS_PER_LANE = 8
 #: 16-byte vectors a lane holds at most, by element size: four of float32,
 #: one of bfloat16 (at 8 heads x 128 on an H100 a bfloat16 lane holding two
 #: took 17 % longer in K4 and 24 % in K6, a float32 lane holding two in
@@ -162,20 +169,19 @@ def softmax_parts(recv: torch.Tensor, send: torch.Tensor, w: torch.Tensor,
 
 
 def columns_per_lane(heads: int, feat: int) -> int:
-    """Feature columns per lane: a warp gives each head 32 / Hp lanes (Hp
-    the head count rounded up to a power of two), which share its
-    ``feat`` columns."""
+    """Feature columns per lane of K8-K10: a warp gives each head 32 / Hp
+    lanes (Hp the head count rounded up to a power of two), which share its
+    ``feat`` columns; the fewest that cover them, or the most (32), where
+    the kernel walks a wider head in windows of that many columns a
+    lane."""
     group = 32 // (1 << (heads - 1).bit_length())
-    for cpl in CPL_CHOICES:
-        if group * cpl >= feat:
-            return cpl
-    raise ValueError(f"attend kernels: {feat} features per head exceed "
-                     f"{group * CPL_CHOICES[-1]} at {heads} heads")
+    return next((cpl for cpl in CPL_CHOICES if group * cpl >= feat),
+                CPL_CHOICES[-1])
 
 
 @dataclasses.dataclass(frozen=True)
 class AttendLayout:
-    """The column layout of K4's and K6's row walk: vectors of ``vec``
+    """The column layout of K4-K6's row walk: vectors of ``vec``
     elements (16 bytes, or 1 element where the head width or the address
     does not allow 16), ``nv`` of them a lane, ``lpe`` lanes an edge (32 /
     ``lpe`` edges at a time); slabs of ``slab_heads`` whole heads or, with
@@ -194,12 +200,15 @@ class AttendLayout:
 
 
 def attend_layout(heads: int, feat: int, itemsize: int,
-                  aligned: bool = True) -> AttendLayout:
+                  aligned: bool = True,
+                  wide_scalars: int = MAX_VECS_PER_LANE) -> AttendLayout:
     """The slab rule: a slab holds as many whole heads as a warp's 32 lanes
     hold at ``VECS_PER_LANE`` 16-byte vectors (or ``MAX_VECS_PER_LANE``
     scalars) each, at most ``MAX_COLS_PER_LANE`` columns (and at most
-    ``SLAB_HEADS`` heads); a
-    head wider than that splits into equal parts. A slab of up to 32
+    ``SLAB_HEADS`` heads); a head wider than that takes up to
+    ``MAX_VECS_PER_LANE`` vectors (or ``wide_scalars`` scalars: K5's
+    ``WIDE_SCALARS_PER_LANE``) a lane, and a head wider than those hold
+    splits into equal parts. A slab of up to 32
     vectors takes one vector a lane and the smallest power of two of lanes
     an edge that covers it; a wider one all 32 lanes and the fewest vectors
     a lane. ``aligned``: every row operand's address is a multiple of 16
@@ -210,7 +219,8 @@ def attend_layout(heads: int, feat: int, itemsize: int,
     vecs = VECS_PER_LANE[itemsize] if vec > 1 else MAX_VECS_PER_LANE
     width = 32 * min(vecs, MAX_COLS_PER_LANE // vec)
     if vph > width:   # a head wider than that: as many as 16 columns hold
-        width = 32 * min(MAX_VECS_PER_LANE, MAX_COLS_PER_LANE // vec)
+        width = 32 * min(MAX_VECS_PER_LANE if vec > 1 else wide_scalars,
+                         MAX_COLS_PER_LANE // vec)
     if vph <= width:
         slab_heads = max(1, min(heads, SLAB_HEADS, width // vph))
         parts = 1
@@ -227,13 +237,13 @@ def attend_layout(heads: int, feat: int, itemsize: int,
     return AttendLayout(vec, nv, lpe, slab_heads, parts, n_slabs)
 
 
-def walk_layout(heads: int, x: torch.Tensor, *rows: torch.Tensor
-                ) -> AttendLayout:
+def walk_layout(heads: int, x: torch.Tensor, *rows: torch.Tensor,
+                wide_scalars: int = MAX_VECS_PER_LANE) -> AttendLayout:
     """``attend_layout`` for ``x`` and the other [N, H*F] operands of one
     call (their addresses decide the vector width)."""
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, *rows))
     return attend_layout(heads, x.shape[1] // heads, x.element_size(),
-                         aligned)
+                         aligned, wide_scalars)
 
 
 def check_operands(name: str, hg: HybridGraph, x: torch.Tensor,
@@ -300,15 +310,19 @@ SCALAR_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float,
                                         ctypes.c_void_p]
 
 
+def cuda_stream(x: torch.Tensor) -> int:
+    """The handle of the current stream of ``x``'s card."""
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 def scalar_args(x: torch.Tensor, tiles: torch.Tensor, heads: int,
-                slope: float, keep_prob: float, dropping: bool,
+                slope: float, keep_prob: float, dropping: bool, stream: int,
                 cpl: bool = True) -> list:
-    """The trailing scalars (``SCALAR_ARGTYPES``); without ``cpl`` (K4 and
-    K6, whose layout is ``attend_layout``'s) the sixth is left out."""
+    """The trailing scalars (``SCALAR_ARGTYPES``); without ``cpl`` (K4-K6,
+    whose layout is ``attend_layout``'s) the sixth is left out."""
     n, hf = x.shape
     lanes = [columns_per_lane(heads, hf // heads)] if cpl else []
     return [n, heads, hf // heads, int(x.dtype == torch.bfloat16),
             int(tiles.dtype == torch.bfloat16), *lanes,
             float(slope), float(np.float32(1.0 / keep_prob)),
-            keep_thresh(keep_prob) if dropping else 0, int(dropping),
-            torch.cuda.current_stream(x.device).cuda_stream]
+            keep_thresh(keep_prob) if dropping else 0, int(dropping), stream]

@@ -40,9 +40,9 @@ import torch
 
 from ...core.bcsr import HybridGraph
 from .attend_common import (LONG_ROW_EDGES, NEG, SCALAR_ARGTYPES,
-                            check_operands, leaky, ptr, rem_edges,
-                            scalar_args, softmax_parts, tile_edges,
-                            walk_layout)
+                            check_operands, cuda_stream, leaky, ptr,
+                            rem_edges, scalar_args, softmax_parts,
+                            tile_edges, walk_layout)
 from .build import check, load
 
 
@@ -117,7 +117,7 @@ def attend_online(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
     lay = walk_layout(heads, x, out)
     long_rows = hg.long_rows[0]
     scalars = scalar_args(x, bg.tiles, heads, slope, keep_prob, dropping,
-                          cpl=False)
+                          cuda_stream(x), cpl=False)
     lib = load("attend_online_kernel", _ENTRIES)
     with torch.cuda.device(x.device):
         err = lib.gnn_attend_online(

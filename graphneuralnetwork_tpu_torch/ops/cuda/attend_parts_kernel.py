@@ -24,8 +24,12 @@ forward tiles of the hybrid graph ``hg``, with the shift ``m`` given:
 They replace the TPU kernels ``_attend_kernel`` (``_parts_pallas``) and
 ``_attend_fused_kernel`` (``_fused_pallas``) of
 ``graphneuralnetwork_tpu/ops/bcsr_attention.py``; the design note is in the
-CUDA source. A CUDA tensor launches the kernel; a CPU tensor takes
-``tile_parts_plain`` / ``attend_fused_plain``. ``tile_parts.launches`` and
+CUDA source: a warp per receiver row, a lane group per head, and a head
+wider than the group's 32 columns a lane walked in windows of that width,
+one warp a (row, window).
+``tile_parts_args`` and ``attend_fused_args`` build the launch arguments.
+A CUDA tensor launches the kernel; a CPU tensor takes ``tile_parts_plain``
+/ ``attend_fused_plain``. ``tile_parts.launches`` and
 ``attend_fused.launches`` count launches.
 """
 
@@ -37,8 +41,8 @@ from typing import Optional
 import torch
 
 from ...core.bcsr import HybridGraph
-from .attend_common import (SCALAR_ARGTYPES, check_operands, ptr,
-                            scalar_args, softmax_parts, tile_edges)
+from .attend_common import (SCALAR_ARGTYPES, check_operands, cuda_stream,
+                            ptr, scalar_args, softmax_parts, tile_edges)
 from .build import check, load
 
 #: the three entries of the one library, declared at its first load
@@ -101,28 +105,56 @@ def _prepare(name, hg, x, f_src, bits, keep_prob, **node_arrays):
     return heads, dropping
 
 
+def tile_parts_args(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
+                    f_dst: torch.Tensor, m: torch.Tensor,
+                    bits: Optional[torch.Tensor], num: torch.Tensor,
+                    den: torch.Tensor, slope: float, keep_prob: float,
+                    stream: int) -> list:
+    """``gnn_tile_parts``'s arguments (``PARTS_ENTRIES``)."""
+    bg = hg.bcsr
+    return [x.data_ptr(), f_src.data_ptr(), f_dst.data_ptr(), m.data_ptr(),
+            bg.tiles.data_ptr(), ptr(bits), bg.col_ids.data_ptr(),
+            bg.tile_off.data_ptr(), bg.tile_cnt.data_ptr(), num.data_ptr(),
+            den.data_ptr(),
+            *scalar_args(x, bg.tiles, f_src.shape[1], slope, keep_prob,
+                         keep_prob < 1.0, stream)]
+
+
+def attend_fused_args(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
+                      f_dst: torch.Tensor, m: torch.Tensor,
+                      num_init: torch.Tensor, den_init: torch.Tensor,
+                      bits: Optional[torch.Tensor], out: torch.Tensor,
+                      den: torch.Tensor, slope: float, keep_prob: float,
+                      stream: int) -> list:
+    """``gnn_attend_fused``'s arguments (``PARTS_ENTRIES``)."""
+    bg = hg.bcsr
+    return [x.data_ptr(), f_src.data_ptr(), f_dst.data_ptr(), m.data_ptr(),
+            bg.tiles.data_ptr(), ptr(bits), bg.col_ids.data_ptr(),
+            bg.tile_off.data_ptr(), bg.tile_cnt.data_ptr(),
+            num_init.data_ptr(), den_init.data_ptr(), out.data_ptr(),
+            den.data_ptr(),
+            *scalar_args(x, bg.tiles, f_src.shape[1], slope, keep_prob,
+                         keep_prob < 1.0, stream)]
+
+
 def tile_parts(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
                f_dst: torch.Tensor, m: torch.Tensor,
                bits: Optional[torch.Tensor], slope: float, keep_prob: float):
     if x.device.type == "cpu":
         return tile_parts_plain(hg, x, f_src, f_dst, m, bits, slope,
                                 keep_prob)
-    heads, dropping = _prepare("tile_parts", hg, x, f_src, bits, keep_prob,
-                               f_dst=f_dst, m=m)
+    heads, _ = _prepare("tile_parts", hg, x, f_src, bits, keep_prob,
+                        f_dst=f_dst, m=m)
     n, hf = x.shape
     num = torch.empty(n, hf, dtype=torch.float32, device=x.device)
     den = torch.empty(n, heads, dtype=torch.float32, device=x.device)
     if n == 0:
         return num, den
-    bg = hg.bcsr
+    args = tile_parts_args(hg, x, f_src, f_dst, m, bits, num, den, slope,
+                           keep_prob, cuda_stream(x))
     lib = load("attend_parts_kernel", PARTS_ENTRIES)
     with torch.cuda.device(x.device):
-        err = lib.gnn_tile_parts(
-            x.data_ptr(), f_src.data_ptr(), f_dst.data_ptr(), m.data_ptr(),
-            bg.tiles.data_ptr(), ptr(bits), bg.col_ids.data_ptr(),
-            bg.tile_off.data_ptr(), bg.tile_cnt.data_ptr(), num.data_ptr(),
-            den.data_ptr(),
-            *scalar_args(x, bg.tiles, heads, slope, keep_prob, dropping))
+        err = lib.gnn_tile_parts(*args)
     check(lib, err, "tile_parts kernel launch")
     tile_parts.launches += 1
     return num, den
@@ -136,24 +168,20 @@ def attend_fused(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
     if x.device.type == "cpu":
         return attend_fused_plain(hg, x, f_src, f_dst, m, num_init,
                                   den_init, bits, slope, keep_prob)
-    heads, dropping = _prepare("attend_fused", hg, x, f_src, bits,
-                               keep_prob, f_dst=f_dst, m=m,
-                               num_init=num_init, den_init=den_init)
+    heads, _ = _prepare("attend_fused", hg, x, f_src, bits, keep_prob,
+                        f_dst=f_dst, m=m, num_init=num_init,
+                        den_init=den_init)
     n, hf = x.shape
     out = torch.empty(n, hf, dtype=torch.float32, device=x.device)
     den = torch.empty(n, heads, dtype=torch.float32, device=x.device)
     if n == 0:
         return out, den
-    bg = hg.bcsr
+    args = attend_fused_args(hg, x, f_src, f_dst, m, num_init, den_init,
+                             bits, out, den, slope, keep_prob,
+                             cuda_stream(x))
     lib = load("attend_parts_kernel", PARTS_ENTRIES)
     with torch.cuda.device(x.device):
-        err = lib.gnn_attend_fused(
-            x.data_ptr(), f_src.data_ptr(), f_dst.data_ptr(), m.data_ptr(),
-            bg.tiles.data_ptr(), ptr(bits), bg.col_ids.data_ptr(),
-            bg.tile_off.data_ptr(), bg.tile_cnt.data_ptr(),
-            num_init.data_ptr(), den_init.data_ptr(), out.data_ptr(),
-            den.data_ptr(),
-            *scalar_args(x, bg.tiles, heads, slope, keep_prob, dropping))
+        err = lib.gnn_attend_fused(*args)
     check(lib, err, "attend_fused kernel launch")
     attend_fused.launches += 1
     return out, den

@@ -18,8 +18,9 @@ every term at ``w``.
 
 It replaces the TPU kernel ``_rem_attend_kernel`` of
 ``graphneuralnetwork_tpu/ops/pallas/rem_attend_kernel.py``
-(``rem_attend_pallas``); the design note is in the CUDA source. A CUDA
-tensor launches the kernel; a CPU tensor takes ``rem_attend_plain``.
+(``rem_attend_pallas``); the design note is in the CUDA source.
+``rem_attend_args`` builds the launch arguments. A CUDA tensor launches
+the kernel; a CPU tensor takes ``rem_attend_plain``.
 ``rem_attend.launches`` counts kernel launches.
 """
 
@@ -30,8 +31,8 @@ from typing import Optional
 import torch
 
 from ...core.bcsr import HybridGraph
-from .attend_common import (check_operands, ptr, rem_edges, scalar_args,
-                            softmax_parts)
+from .attend_common import (check_operands, cuda_stream, ptr, rem_edges,
+                            scalar_args, softmax_parts)
 from .attend_parts_kernel import PARTS_ENTRIES
 from .build import check, load
 
@@ -46,6 +47,20 @@ def rem_attend_plain(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
     recv, send, w, keep = rem_edges(hg, keep_mul)
     num, den = softmax_parts(recv, send, w, keep, x, f_src, f_dst, m, slope)
     return num.reshape(n, hf), den
+
+
+def rem_attend_args(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
+                    f_dst: torch.Tensor, m: torch.Tensor,
+                    keep_mul: Optional[torch.Tensor], num: torch.Tensor,
+                    den: torch.Tensor, slope: float, stream: int) -> list:
+    """``gnn_rem_attend``'s arguments (``PARTS_ENTRIES``)."""
+    rem = hg.rem
+    return [x.data_ptr(), f_src.data_ptr(), f_dst.data_ptr(), m.data_ptr(),
+            rem.senders.data_ptr(), rem.row_ptr.data_ptr(),
+            rem.edge_weight.data_ptr(), ptr(keep_mul), num.data_ptr(),
+            den.data_ptr(),
+            *scalar_args(x, hg.bcsr.tiles, f_src.shape[1], slope, 1.0,
+                         keep_mul is not None, stream)]
 
 
 def rem_attend(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
@@ -64,15 +79,11 @@ def rem_attend(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
     den = torch.empty(n, heads, dtype=torch.float32, device=x.device)
     if n == 0:
         return num, den
-    rem = hg.rem
+    args = rem_attend_args(hg, x, f_src, f_dst, m, keep_mul, num, den, slope,
+                           cuda_stream(x))
     lib = load("attend_parts_kernel", PARTS_ENTRIES)
     with torch.cuda.device(x.device):
-        err = lib.gnn_rem_attend(
-            x.data_ptr(), f_src.data_ptr(), f_dst.data_ptr(), m.data_ptr(),
-            rem.senders.data_ptr(), rem.row_ptr.data_ptr(),
-            rem.edge_weight.data_ptr(), ptr(keep_mul), num.data_ptr(),
-            den.data_ptr(),
-            *scalar_args(x, hg.bcsr.tiles, heads, slope, 1.0, dropping))
+        err = lib.gnn_rem_attend(*args)
     check(lib, err, "rem_attend kernel launch")
     rem_attend.launches += 1
     return num, den
