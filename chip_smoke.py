@@ -12,7 +12,12 @@ Phases, each printing one JSON line:
                card, at the shapes the main path gives it and at larger
                shapes, and times kernel, plain version and, where one
                exists, one library call (CUDA events, warmed, median):
-               K1/K2 on the Cora COO graph and a 2M-edge graph; K4, K5 and
+               the launch floor (an empty kernel through the same ctypes
+               path); K1/K2 on the Cora COO graph and a 2M-edge graph, K2
+               also on a graph with a hub row and in its gathered form on
+               the remainders of SAGE's Pubmed hybrid (C 500 and 128), of
+               the Cora GAT hybrid and of the 2M-edge community graph (the
+               three-pass shift's 8 heads); K4, K5 and
                K6 on the Cora GAT hybrid (8x8 and 1x7; 8x256, 2x600 and
                3x42 and one head of 50, 256 and 512), a 2M-edge community
                graph (8x128) and a hub graph whose densest row block holds
@@ -53,10 +58,11 @@ Phases, each printing one JSON line:
                epochs with the mean aggregator (K3 and K1, no K7 or K2),
                then with ``--set aggregator=max`` (K7 and K2, no K3 or K1).
 Every CLI run must reach test_acc >= 0.80 with exact launch counts.
-Then a ``previous_design`` line (every K3-K7 case beside its previous
-design's time where ``PREVIOUS_DESIGN_MS`` records one, not measured
-here), a
-``kernels`` summary line and, last, ``{"ok": true, "device": ...}``.
+Then a ``previous_design`` line (every K2-K7 and K10 case beside its
+previous design's time where ``PREVIOUS_DESIGN_MS`` records one, not
+measured here), a
+``kernels`` summary line (with the launch floor) and, last,
+``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without the last line.
 """
 
@@ -74,6 +80,7 @@ import torch
 from graphneuralnetwork_tpu_torch.cli import main as cli_main
 from graphneuralnetwork_tpu_torch.core.bcsr import (COL_BLOCK, ROW_BLOCK,
                                                     build_hybrid)
+from graphneuralnetwork_tpu_torch.core.graph import build_graph
 from graphneuralnetwork_tpu_torch.data import load_cora, load_pubmed_fullbatch
 from graphneuralnetwork_tpu_torch.nn import GAT, GCN, GraphSAGE
 from graphneuralnetwork_tpu_torch.ops import bcsr_attention
@@ -113,13 +120,18 @@ LARGE_NODES, LARGE_EDGES = 65536, 2 ** 21
 #: (``bench.py``'s 2M-edge GAT shape, its locality given, not recovered).
 ATTEND_LARGE = dict(n=131072, e=2 ** 21, comm=256, heads=8, feat=128)
 #: Times with each kernel's previous design, ms ("NVIDIA H100 80GB HBM3,
-#: 700.00 W", PERF.md): K3 and K7 (a CTA per quarter row block and
-#: 32-column slab) keyed by (kernel, graph, x dtype, width); K4, K5 and K6
+#: 700.00 W", PERF.md): K2 (a thread per row and column) keyed by
+#: (kernel, graph, width); K3 and K7 (a CTA per quarter row block and
+#: 32-column slab) by (kernel, graph, x dtype, width); K4, K5 and K6
 #: (a warp per row, a lane group per head, two passes in K4) by (kernel,
-#: graph, x dtype, "HxF", dropout). Recorded, not measured by this script:
-#: ``previous_design`` prints them on a line of their own beside this run's
-#: times.
+#: graph, x dtype, "HxF", dropout); K10 (a warp per row, a lane group per
+#: head) by the same and the shift. Recorded, not measured
+#: by this script: ``previous_design`` prints them on a line of their own
+#: beside this run's times.
 PREVIOUS_DESIGN_MS = {
+    ("K2", "cora", 8): 0.00358,
+    ("K2", "cora", 1): 0.00329,
+    ("K2", "large", 8): 0.0308,
     ("K3", "cora_gcn", "float32", 128): 0.00752,
     ("K3", "cora_gcn", "float32", 7): 0.00455,
     ("K3", "pubmed", "float32", 500): 0.03735,
@@ -145,6 +157,17 @@ PREVIOUS_DESIGN_MS = {
     ("K5", "hub_t", "float32", "1x251", True): 0.01905,
     ("K5", "hub_t", "bfloat16", "1x251", False): 0.01894,
     ("K5", "hub_t", "bfloat16", "1x251", True): 0.01905,
+    ("K10", "cora", "float32", "8x8", True, "exact"): 0.006346,
+    ("K10", "cora", "float32", "1x7", True, "exact"): 0.00610,
+    ("K10", "cora", "float32", "8x8", False, "zero"): 0.00623,
+    ("K10", "hub", "float32", "8x8", True, "exact"): 0.01900,
+    ("K10", "large", "float32", "8x128", False, "exact"): 3.510,
+    ("K10", "large", "float32", "8x128", True, "exact"): 3.636,
+    ("K10", "large", "bfloat16", "8x128", False, "exact"): 3.021,
+    ("K10", "cora", "float32", "8x256", True, "exact"): 0.09599,
+    ("K10", "cora", "bfloat16", "8x256", True, "exact"): 0.07523,
+    ("K10", "cora", "float32", "2x600", True, "exact"): 0.1102,
+    ("K10", "cora", "bfloat16", "2x600", True, "exact"): 0.08988,
 }
 #: Attention dropout of the GAT path (and its keep rate in the checks).
 GAT_DROPOUT = 0.6
@@ -264,36 +287,74 @@ def _k1_case(values, recv, row_ptr, n, label):
         library="index_add_", bound_ms=b_ms, bound_by=b_by, bytes=n_bytes)
 
 
-def _k2_case(scores, recv, row_ptr, n, label):
-    """K2 against its plain version, over the spanned edges as in K1."""
-    h = scores.shape[1]
-    e = int(row_ptr[-1])
-    sc, rec = scores[:e], recv[:e]
-    out = k2.segment_max(scores, recv, row_ptr, n)
-    ref = k2.segment_max_plain(sc, rec, n)
+def _k2_case(graph, src, senders, label):
+    """K2 on ``graph`` against its plain version, exactly: per-edge scores
+    (``senders`` None; only the spanned edges count, as in K1) or a node
+    table read at ``senders``. The bound counts the edges' scores, or the
+    table rows that the edges name once and the senders, the spans and
+    ``out``; the library call is ``scatter_reduce_`` on the per-edge
+    scores (none for the gathered form: no single PyTorch call gathers and
+    reduces)."""
+    n, e = graph.n_nodes, graph.n_edges
+    c = src.shape[1]
+    rec = graph.receivers[:e]
+    rows = src[:e] if senders is None else src[senders[:e].long()]
+    out = k2.segment_max(graph, src, senders)
+    ref = k2.segment_max_plain(rows, rec, n)
     torch.cuda.synchronize()
-    err, rtol, atol = _check(f"K2 {label}", out, ref, "max")
-    lib_out = torch.full((n, h), k2.EMPTY, device=DEVICE)
-    idx = rec.long()[:, None].expand(-1, h)
-    n_bytes = e * h * 4 + (n + 1) * 4 + n * h * 4
-    b_ms, b_by = bound(n_bytes, e * h)
+    form = "edges" if senders is None else "gather"
+    err, rtol, atol = _check(f"K2 {label} C={c} {form}", out, ref, "max")
+    if not torch.equal(out.isnan(), ref.isnan()):
+        raise AssertionError(f"K2 {label}: NaN pattern differs")
+    if senders is None:
+        n_bytes = e * c * 4
+        lib_out = torch.full((n, c), k2.EMPTY, device=DEVICE)
+        idx = rec.long()[:, None].expand(-1, c)
+        sc = src[:e]
+        library_ms = time_ms(lambda: lib_out.scatter_reduce_(
+            0, idx, sc, "amax", include_self=True))
+        library = "scatter_reduce_"
+    else:
+        named = int(senders[:e].unique().numel())
+        n_bytes = named * c * 4 + e * 4
+        library_ms, library = None, "none: a gather and a reduce"
+    n_bytes += (n + 1) * 4 + n * c * 4
+    b_ms, b_by = bound(n_bytes, e * c)
+    lay = k2.segmax_layout(c, graph.mean_row_edges, n, tile_walk.sm_count(
+        torch.device(DEVICE).index or 0))
     return dict(
-        kernel="K2", shape=list(scores.shape), edges_read=e,
+        kernel="K2", form=form, shape=[int(src.shape[0]), c], edges_read=e,
         dtype="float32", n_out=n, graph=label, max_abs_err=err, rtol=rtol,
-        atol=atol,
-        kernel_ms=time_ms(lambda: k2.segment_max(scores, recv, row_ptr, n)),
-        plain_ms=time_ms(lambda: k2.segment_max_plain(sc, rec, n)),
-        library_ms=time_ms(lambda: lib_out.scatter_reduce_(
-            0, idx, sc, "amax", include_self=True)),
-        library="scatter_reduce_", bound_ms=b_ms, bound_by=b_by,
+        atol=atol, layout=dataclasses.asdict(lay),
+        long_rows=int(graph.long_rows.numel()),
+        kernel_ms=time_ms(lambda: k2.segment_max(graph, src, senders)),
+        plain_ms=time_ms(lambda: k2.segment_max_plain(
+            src[:e] if senders is None else src[senders[:e].long()], rec,
+            n)),
+        library_ms=library_ms, library=library, bound_ms=b_ms, bound_by=b_by,
         bytes=n_bytes)
 
 
-def phase_kernels(cora) -> list[dict]:
-    """Cora's padding edges get random values too: the kernels must ignore
-    them, as the plain versions do."""
+def _hub_row_graph():
+    """65,536 nodes with 4 random in-edges each, and node 0 with 32,768
+    more: a hub row that K2 splits over a CTA."""
+    rng = np.random.default_rng(2)
+    n = 65536
+    r = np.concatenate([np.repeat(np.arange(n), 4), np.zeros(32768, int)])
+    s = rng.integers(0, n, r.shape[0])
+    return build_graph(s, r, n, device=DEVICE)
+
+
+def phase_kernels(cora, cora_hg, pubmed_hg, large) -> tuple[list, float]:
+    """The launch floor, then K1 and K2 at the main path's shapes and
+    larger. Cora's padding edges get random values too: the kernels must
+    ignore them, as the plain versions do. Returns the cases and the
+    launch floor in ms."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
+    floor_ms = time_ms(lambda: k2.launch_floor(torch.device(DEVICE)))
+    emit({"phase": "kernels", "launch_floor_ms": floor_ms,
+          "what": "an empty kernel on one warp, through the ctypes path"})
     g = cora.graph
     graphs = {"cora": (g.receivers, g.row_ptr, g.n_nodes, g.n_edge_pad),
               "large": _large_graph(gen) + (LARGE_EDGES,)}
@@ -315,14 +376,33 @@ def phase_kernels(cora) -> list[dict]:
     cases.append(_k1_case(values, g.receivers, padded_ptr, g.n_nodes,
                           "cora_padded_spans"))
     emit({"phase": "kernels", **cases[-1]})
-    for label, h in (("cora", 8), ("cora", 1), ("large", 8)):
-        recv, row_ptr, n, e = graphs[label]
-        scores = torch.randn(e, h, device=DEVICE, generator=gen)
-        cases.append(_k2_case(scores, recv, row_ptr, n, label))
+    # K2: GAT-COO's per-edge scores (8 heads, then 1), the 2M-edge graph
+    # and a hub row; the gathered form on the remainders of SAGE-max's
+    # Pubmed hybrid (its two layers' widths) and of the three-pass shift's
+    # graphs (8 heads)
+    recv = graphs["large"][0]
+    large_g = build_graph(
+        torch.randint(0, LARGE_NODES, (LARGE_EDGES,), generator=gen,
+                      device=DEVICE).cpu().numpy(),
+        recv.cpu().numpy(), LARGE_NODES, device=DEVICE)
+    per_edge = [("cora", g, 8), ("cora", g, 1), ("large", large_g, 8),
+                ("hub_row", _hub_row_graph(), 8)]
+    gathered = [("pubmed_rem", pubmed_hg.rem, 500),
+                ("pubmed_rem", pubmed_hg.rem, 128),
+                ("cora_gat_rem", cora_hg.rem, 8),
+                ("large_rem", large.rem, 8)]
+    for label, graph, c in per_edge:
+        scores = torch.randn(graph.n_edge_pad, c, device=DEVICE,
+                             generator=gen)
+        cases.append(_k2_case(graph, scores, None, label))
+        emit({"phase": "kernels", **cases[-1]})
+    for label, graph, c in gathered:
+        table = torch.randn(graph.n_nodes, c, device=DEVICE, generator=gen)
+        cases.append(_k2_case(graph, table, graph.senders, label))
         emit({"phase": "kernels", **cases[-1]})
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
           "cases": len(cases)})
-    return cases
+    return cases, floor_ms
 
 
 def _community_graph(n, e, comm, seed=0):
@@ -1090,13 +1170,15 @@ KERNELS = {
            "graphneuralnetwork_tpu/ops/bcsr_attention.py:417",
            _cora_gat_train),
     "K10": ("attend_fused",
-            "graphneuralnetwork_tpu_torch/csrc/attend_parts_kernel.cu",
+            "graphneuralnetwork_tpu_torch/csrc/attend_fused_kernel.cu",
             "graphneuralnetwork_tpu/ops/bcsr_attention.py:440",
             _cora_gat_train),
 }
 
 
-def summary(cases, launches) -> dict:
+def summary(cases, launches, floor_ms) -> dict:
+    """The ``kernels`` line: each kernel's timed case, and the launch
+    floor (an empty kernel through the same ctypes path) beside them."""
     rows = []
     for kern, (name, source, replaces, pick) in KERNELS.items():
         f32 = [c for c in cases
@@ -1112,12 +1194,12 @@ def summary(cases, launches) -> dict:
             "timed_case": f"float32 {c['shape']} on {c['graph']}"
                           + (" with dropout" if c.get("dropout") else ""),
         })
-        if kern in ("K3", "K7"):   # every case of this run
+        if kern in ("K2", "K3", "K7"):   # every case of this run
             rows[-1]["cases"] = [
-                {"case": _tile_case(x), "ms": x["kernel_ms"],
+                {"case": _case_name(x), "ms": x["kernel_ms"],
                  "bound_ms": x["bound_ms"]}
                 for x in cases if x["kernel"] == kern]
-    return {"kernels": rows}
+    return {"kernels": rows, "launch_floor_ms": floor_ms}
 
 
 def _tile_case(c) -> str:
@@ -1125,24 +1207,36 @@ def _tile_case(c) -> str:
             "tiles")
 
 
+def _case_name(c) -> str:
+    if c["kernel"] == "K2":
+        return f"{c['form']} {c['shape']} on {c['graph']}"
+    return _tile_case(c)
+
+
 def _attend_key(c) -> tuple:
-    return (c["kernel"], c["graph"], c["dtype"],
-            f"{c['shape'][1]}x{c['shape'][2]}", c["dropout"])
+    """An attend case's key; K8-K10's also name the shift."""
+    key = (c["kernel"], c["graph"], c["dtype"],
+           f"{c['shape'][1]}x{c['shape'][2]}", c["dropout"])
+    return key + ((c["shift"],) if "shift" in c else ())
 
 
 def previous_design(cases) -> dict:
-    """Each K3-K7 case's time in this run beside its previous design's,
-    which ``PREVIOUS_DESIGN_MS`` holds as recorded (None where it holds
-    none), not measured here."""
+    """Each K2-K7 and K10 case's time in this run beside its previous
+    design's, which ``PREVIOUS_DESIGN_MS`` holds as recorded (None where it
+    holds none), not measured here."""
     rows = []
     for c in cases:
-        if c["kernel"] in ("K3", "K7"):
+        if c["kernel"] == "K2":
+            case = _case_name(c)
+            key = ("K2", c["graph"], c["shape"][1])
+        elif c["kernel"] in ("K3", "K7"):
             case = _tile_case(c)
             key = (c["kernel"], c["graph"], c["dtype"], c["shape"][1])
-        elif c["kernel"] in ("K4", "K5", "K6"):
+        elif c["kernel"] in ("K4", "K5", "K6", "K10"):
             key = _attend_key(c)
             case = (f"{c['dtype']} {key[3]} on {c['graph']}"
-                    + (" with dropout" if c["dropout"] else ""))
+                    + (" with dropout" if c["dropout"] else "")
+                    + (f", m {c['shift']}" if "shift" in c else ""))
         else:
             continue
         rows.append({"kernel": c["kernel"], "case": case,
@@ -1170,9 +1264,10 @@ def main() -> None:
     cora_g = load_cora(seed=0, layout="hybrid", device=DEVICE)
     pubmed = load_pubmed_fullbatch(seed=0, layout="hybrid", device=DEVICE)
     large = _large_hybrid()
-    cases = (phase_kernels(cora) + phase_attend_kernels(cora_hg, large)
-             + phase_tile_kernels(cora_g.graph, cora_hg, pubmed.graph,
-                                  large))
+    cases, floor_ms = phase_kernels(cora, cora_hg, pubmed.graph, large)
+    cases += (phase_attend_kernels(cora_hg, large)
+              + phase_tile_kernels(cora_g.graph, cora_hg, pubmed.graph,
+                                   large))
     del large
     phase_path(cora, cora_h, cora_hg, cora_g, pubmed)
     # the three-pass attend and its stage profiler: the only paths that
@@ -1214,7 +1309,8 @@ def main() -> None:
                        sage + ["--set", "aggregator=max"],
                        {"K7": (4, 2), "K2": (4, 2)}))
     emit(previous_design(cases))
-    emit(summary(cases, {k: sum(run[k] for run in runs) for k in COUNTERS}))
+    emit(summary(cases, {k: sum(run[k] for run in runs) for k in COUNTERS},
+                 floor_ms))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -9,7 +9,9 @@ on-device representation is the same padded, receiver-sorted COO edge list:
     chunk spans of the TPU layout, kept so the arrays compare equal with
     the JAX builder;
   * ``row_ptr``: int32[N+1] CSR offsets of the real edges, which the CUDA
-    segment kernels walk; ``row_ptr[N] = n_edges``.
+    segment kernels walk; ``row_ptr[N] = n_edges``;
+  * ``long_rows`` (built at first use and kept): the rows with more than
+    ``long_edges`` edges, which the segment max (K2) splits over a CTA.
 
 Padding edges self-loop on node ``n_nodes-1`` with weight 0. They lie in
 no row's ``row_ptr`` span: every aggregation gives them zero values, so
@@ -20,6 +22,7 @@ a hub whose edges one thread walks in turn (timed by chip_smoke.py).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -34,6 +37,11 @@ EDGE_BLOCK = 1024
 NODE_BLOCK = 8
 #: Output rows per chunk span (the reference kernel's row block).
 ROW_BLOCK = 128
+#: The segment max (K2) splits a row over the 8 warps of a CTA of its own
+#: when it holds more edges than the larger of these: a fixed floor, and a
+#: multiple of the graph's mean row length (``Graph.long_edges``).
+LONG_ROW_EDGES = 32
+LONG_ROW_MEANS = 4
 
 
 def _round_up(x: int, m: int) -> int:
@@ -68,6 +76,26 @@ class Graph:
         """bool[E_pad] — True on real edges."""
         return (torch.arange(self.n_edge_pad, device=self.device)
                 < self.n_edges)
+
+    @property
+    def mean_row_edges(self) -> float:
+        """Real edges per row, on the host (no device read)."""
+        return self.n_edges / max(self.n_nodes, 1)
+
+    @property
+    def long_edges(self) -> int:
+        """Edges above which K2 gives a row a CTA of its own: the larger of
+        ``LONG_ROW_EDGES`` and ``LONG_ROW_MEANS`` mean rows."""
+        return max(LONG_ROW_EDGES,
+                   LONG_ROW_MEANS * -(-self.n_edges // max(self.n_nodes, 1)))
+
+    @functools.cached_property
+    def long_rows(self) -> torch.Tensor:
+        """int32: the rows (ascending) with more than ``long_edges`` real
+        edges, each split over a CTA by K2. Built at first use (a host
+        sync) and kept with the graph."""
+        deg = self.row_ptr[1:] - self.row_ptr[:-1]
+        return torch.nonzero(deg > self.long_edges).flatten().int()
 
     def with_weights(self, w: torch.Tensor) -> "Graph":
         return dataclasses.replace(self, edge_weight=w)

@@ -1,13 +1,14 @@
 // Helpers shared by the hybrid GAT attend kernels (attend_online_kernel.cu,
-// attend_bwd_kernel.cu, attend_parts_kernel.cu), for Hopper (sm_90a).
+// attend_bwd_kernel.cu, attend_parts_kernel.cu, attend_fused_kernel.cu),
+// for Hopper (sm_90a).
 //
-// The lane groups (Lanes, lane_layout, windows) are the layout of K8-K10,
-// which give one warp to one receiver row of the hybrid layout
-// (core/bcsr.py); K4-K6 walk rows in slabs (attend_walk.cuh). The warp's
-// lanes split into one group per head: G = 32 / Hp lanes each, Hp the head
-// count rounded up to a power of two. Lane g of head h's group owns the
-// feature columns f = c0 + g + G*j (j < CPL) of that head, c0 its warp's
-// window (0, unless the head is wider than G * 32 columns: then each
+// The lane groups (Lanes, lane_layout, windows) are the layout of K8 and
+// K9, which give one warp to one receiver row of the hybrid layout
+// (core/bcsr.py); K4-K6 and K10 walk rows in slabs (attend_walk.cuh). The
+// warp's lanes split into one group per head: G = 32 / Hp lanes each, Hp
+// the head count rounded up to a power of two. Lane g of head h's group
+// owns the feature columns f = c0 + g + G*j (j < CPL) of that head, c0 its
+// warp's window (0, unless the head is wider than G * 32 columns: then each
 // window of G * 32 takes a warp), and computes the head's per-edge scalars
 // (score, softmax weight, dropout mask) itself. No column needs another
 // lane's value, so no shuffle runs per column.

@@ -1,5 +1,6 @@
-// K8, K9 and K10: the softmax partials of the three-pass hybrid GAT attend,
-// for Hopper (sm_90a).
+// K8 and K9: the softmax partials of the three-pass hybrid GAT attend, for
+// Hopper (sm_90a). K10, the tile pass seeded with K8's partials, walks the
+// row stream of attend_walk.cuh (attend_fused_kernel.cu).
 //
 // With the shift m[r,h] given (the three-pass attend takes it from the
 // neighbour max of f_src: K7 on the tiles, K2 on the remainder), every edge
@@ -15,31 +16,26 @@
 //                          dense tiles (w: the tile count; keep:
 //                          head_keep(bits[slot], h) / keep_prob);
 //                          writes num and den
-//   gnn_attend_fused (K10) as K9, with num and den started from num_init and
-//                          den_init (the remainder's partials); writes
-//                          out = num / max(den, 1e-16) and the raw den
 //
 // Outputs are float32 and every row < n is written (zeros on a row without
-// edges; K10 writes num_init / max(den_init, 1e-16) on a row whose row block
-// has no tile). The exponent is clamped at 0 whatever m is, as the TPU
-// kernels clamp it.
+// edges). The exponent is clamped at 0 whatever m is, as the TPU kernels
+// clamp it.
 //
 // Replaces the TPU kernels _rem_attend_kernel
-// (graphneuralnetwork_tpu/ops/pallas/rem_attend_kernel.py, rem_attend_pallas),
-// _attend_kernel and _attend_fused_kernel
-// (graphneuralnetwork_tpu/ops/bcsr_attention.py, _parts_pallas and
-// _fused_pallas). A TPU grid step owns a 128-row block and one 1,024-edge
+// (graphneuralnetwork_tpu/ops/pallas/rem_attend_kernel.py, rem_attend_pallas)
+// and _attend_kernel (graphneuralnetwork_tpu/ops/bcsr_attention.py,
+// _parts_pallas). A TPU grid step owns a 128-row block and one 1,024-edge
 // remainder chunk or one dense tile: K8 fetches each edge's receiver values
-// and scatters its terms with one-hot matmuls on the matrix unit, K9 and K10
-// multiply the whole 128x128 probability tile, zero slots included, with the
-// x block. None of that carries over. The work is K4's second pass
+// and scatters its terms with one-hot matmuls on the matrix unit, K9
+// multiplies the whole 128x128 probability tile, zero slots included, with
+// the x block. None of that carries over. The work is K4's second pass
 // (attend_online_kernel.cu) split at the tile/remainder boundary: one warp
 // owns one receiver row and reads its values directly, the remainder loop
 // walks rem.row_ptr (the real edges only), and the tile loop turns each
 // 32-slot word of the receiver's tile row into a __ballot_sync mask, so an
 // empty slot reads no x.
 //
-// Bound: bytes, once per edge a gathered x row ([H*F] values) and for K9/K10
+// Bound: bytes, once per edge a gathered x row ([H*F] values) and for K9
 // once per tile the receiver's 128-slot tile row (and lattice row); one exp
 // per (edge, head) and 2 flops per (edge, column). Design for it: as K4's
 // first design, each head's lane group reads its F columns of a gathered x
@@ -55,14 +51,14 @@
 namespace gnn_attend {
 namespace {
 
-enum Mode { kRem = 0, kTiles = 1, kFused = 2 };
+enum Mode { kRem = 0, kTiles = 1 };
 
 struct PartsArgs {
   const void* x;           // [n, hf] XT
   const float* fs;         // [n, heads]
   const float* fd;         // [n, heads]
   const float* m;          // [n, heads]
-  const void* tiles;       // [T, 128, 128] float or bf16 (K9, K10)
+  const void* tiles;       // [T, 128, 128] float or bf16 (K9)
   const int* bits;         // [T, 128, 128] uint32 lattice, or null
   const int* col_ids;      // [T]
   const int* tile_off;     // [n_row_blocks]
@@ -71,9 +67,7 @@ struct PartsArgs {
   const int* rem_row_ptr;  // [n + 1]
   const float* rem_w;      // [E_pad]
   const float* keep_mul;   // [E_pad, heads], or null
-  const float* num_init;   // [n, hf] (K10)
-  const float* den_init;   // [n, heads] (K10)
-  float* num;              // [n, hf]: num (K8, K9) or out (K10)
+  float* num;              // [n, hf]
   float* den;              // [n, heads]
   int n, heads, feat, tile_bf16, dropping;
   float slope, inv_keep;
@@ -119,13 +113,7 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
   float acc[CPL];
   float den = 0.f;
 #pragma unroll
-  for (int j = 0; j < CPL; ++j) {
-    const int f = L.sub + L.group * j;
-    acc[j] = MODE == kFused && L.active && f < wfeat
-                 ? a.num_init[out_base + f]
-                 : 0.f;
-  }
-  if (MODE == kFused) den = a.den_init[row * heads + h];
+  for (int j = 0; j < CPL; ++j) acc[j] = 0.f;
 
   if (MODE == kRem) {
     const int e0 = a.rem_row_ptr[row], e1 = a.rem_row_ptr[row + 1];
@@ -140,8 +128,7 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
       accumulate<XT, CPL>(acc, pn, x + s * hf, L, wfeat);
     }
   } else {
-    // a row block without tiles runs no iteration: K10 still writes the
-    // remainder's partials divided below
+    // a row block without tiles runs no iteration
     const int rb = row / kRowBlock, ri = row % kRowBlock;
     const int t0 = a.tile_off[rb], t1 = t0 + a.tile_cnt[rb];
     for (int t = t0; t < t1; ++t) {
@@ -176,13 +163,11 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 
   if (!L.active) return;
   if (L.sub == 0 && c0 == 0) a.den[row * heads + h] = den;
-  // K10 divides in-register by the clamped mass; den stays raw
-  const float d = MODE == kFused ? fmaxf(den, 1e-16f) : 1.f;
   float* out = a.num + out_base;
 #pragma unroll
   for (int j = 0; j < CPL; ++j) {
     const int f = L.sub + L.group * j;
-    if (f < wfeat) out[f] = MODE == kFused ? acc[j] / d : acc[j];
+    if (f < wfeat) out[f] = acc[j];
   }
 }
 
@@ -256,8 +241,8 @@ PartsArgs common_args(const void* x, const void* fs, const void* fd,
 // The trailing scalars of every entry: x_bf16 / tile_bf16: 0 = float32,
 // 1 = bfloat16; cpl: columns per lane, one of 1, 2, 4, 8, 16, 32, with
 // cpl * (lanes per head) >= feat, or 32 for a head wider than that, which
-// is walked in windows; heads <= 32. keep_mul (K8) and bits (K9,
-// K10) are read only when dropping. Each returns the launch's cudaError_t.
+// is walked in windows; heads <= 32. keep_mul (K8) and bits (K9) are read
+// only when dropping. Each returns the launch's cudaError_t.
 
 extern "C" int gnn_rem_attend(
     const void* x, const void* fs, const void* fd, const void* m,
@@ -296,27 +281,4 @@ extern "C" int gnn_tile_parts(
   a.num = static_cast<float*>(num);
   a.den = static_cast<float*>(den);
   return launch<kTiles>(a, x_bf16, cpl, stream);
-}
-
-extern "C" int gnn_attend_fused(
-    const void* x, const void* fs, const void* fd, const void* m,
-    const void* tiles, const void* bits, const void* col_ids,
-    const void* tile_off, const void* tile_cnt, const void* num_init,
-    const void* den_init, void* out, void* den,
-    int n, int heads, int feat, int x_bf16, int tile_bf16, int cpl,
-    float slope, float inv_keep, unsigned thresh, int dropping,
-    void* stream) {
-  using namespace gnn_attend;
-  PartsArgs a = common_args(x, fs, fd, m, n, heads, feat, tile_bf16, slope,
-                            inv_keep, thresh, dropping);
-  a.tiles = tiles;
-  a.bits = static_cast<const int*>(bits);
-  a.col_ids = static_cast<const int*>(col_ids);
-  a.tile_off = static_cast<const int*>(tile_off);
-  a.tile_cnt = static_cast<const int*>(tile_cnt);
-  a.num_init = static_cast<const float*>(num_init);
-  a.den_init = static_cast<const float*>(den_init);
-  a.num = static_cast<float*>(out);
-  a.den = static_cast<float*>(den);
-  return launch<kFused>(a, x_bf16, cpl, stream);
 }

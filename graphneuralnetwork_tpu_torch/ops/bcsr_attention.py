@@ -272,7 +272,7 @@ def three_pass_shift(hg: HybridGraph, f_src: torch.Tensor,
     remainder; LeakyReLU is monotone), and 0 where a node has none."""
     fs32 = f_src.detach().float().contiguous()
     nmax = torch.maximum(bcsr_neighbor_max(hg.bcsr, fs32),
-                         _rem_segment_max(hg.rem, fs32[hg.rem.senders]))
+                         _rem_segment_max(hg.rem, fs32))
     return torch.where(nmax > NEG / 2,
                        leaky(f_dst.detach().float() + nmax, slope), 0.0)
 
@@ -317,13 +317,14 @@ def bcsr_neighbor_max(bg: BCSRGraph, v: torch.Tensor) -> torch.Tensor:
     return neighbor_max(bg, v.detach().float().contiguous())
 
 
-def _rem_segment_max(rem: Graph, gathered: torch.Tensor) -> torch.Tensor:
-    """Per-receiver max of the remainder's gathered edge values [E_pad, C]
-    (K2 on the card); only the real edges, which ``rem.row_ptr`` spans,
-    count, so the padding needs no mask. Empty rows get K2's ``EMPTY``,
-    below ``NEG / 2``. Forward only."""
-    return segment_max(gathered.detach().contiguous(), rem.receivers,
-                       rem.row_ptr, rem.n_nodes)
+def _rem_segment_max(rem: Graph, v: torch.Tensor) -> torch.Tensor:
+    """Per-receiver max of the node values ``v`` [N, C] over the
+    remainder's in-edges, ``max_{s -> r} v[s]`` (K2 on the card, which
+    reads ``v`` at ``rem.senders`` itself: no gathered copy); only the
+    real edges, which ``rem.row_ptr`` spans, count, so the padding needs no
+    mask. Empty rows get K2's ``EMPTY``, below ``NEG / 2``. Forward
+    only."""
+    return segment_max(rem, v.detach().contiguous(), rem.senders)
 
 
 def _max_pool_grad(hg: HybridGraph, v: torch.Tensor, best: torch.Tensor,
@@ -347,7 +348,7 @@ class _HybridSegmentMax(torch.autograd.Function):
     def forward(ctx, x, hg, empty_value):
         v = x.detach().float().contiguous()
         best = torch.maximum(bcsr_neighbor_max(hg.bcsr, v),
-                             _rem_segment_max(hg.rem, v[hg.rem.senders]))
+                             _rem_segment_max(hg.rem, v))
         ctx.save_for_backward(v, best)
         ctx.hg = hg
         return torch.where(best > NEG / 2, best, empty_value).to(x.dtype)

@@ -5,7 +5,7 @@ The dropout hash (``head_keep``) and its constants, the edge lists that the
 plain versions build from the hybrid layout, the softmax partials over such
 a list (``softmax_parts``), the checks and launch arguments of the
 wrappers, the column layout of K4-K6's row walk (``attend_layout``,
-``csrc/attend_walk.cuh``) and K8-K10's columns per lane
+``csrc/attend_walk.cuh``, K10's too) and K8's and K9's columns per lane
 (``columns_per_lane``). Pure PyTorch: nothing here
 builds or loads a kernel.
 """
@@ -24,7 +24,7 @@ from ...core.bcsr import (COL_BLOCK, LONG_ROW_EDGES, ROW_BLOCK, BCSRGraph,
 
 NEG = -1e30  # "-inf" stand-in that survives float32 arithmetic
 _MASK32 = 0xFFFFFFFF
-#: Columns per lane (of a window) K8-K10 are compiled for.
+#: Columns per lane (of a window) K8 and K9 are compiled for.
 CPL_CHOICES = (1, 2, 4, 8, 16, 32)
 #: Elements of a per-edge [E, H*F] temporary of the plain versions.
 PLAIN_CHUNK_ELEMENTS = 1 << 26
@@ -169,7 +169,7 @@ def softmax_parts(recv: torch.Tensor, send: torch.Tensor, w: torch.Tensor,
 
 
 def columns_per_lane(heads: int, feat: int) -> int:
-    """Feature columns per lane of K8-K10: a warp gives each head 32 / Hp
+    """Feature columns per lane of K8 and K9: a warp gives each head 32 / Hp
     lanes (Hp the head count rounded up to a power of two), which share its
     ``feat`` columns; the fewest that cover them, or the most (32), where
     the kernel walks a wider head in windows of that many columns a
@@ -318,8 +318,8 @@ def cuda_stream(x: torch.Tensor) -> int:
 def scalar_args(x: torch.Tensor, tiles: torch.Tensor, heads: int,
                 slope: float, keep_prob: float, dropping: bool, stream: int,
                 cpl: bool = True) -> list:
-    """The trailing scalars (``SCALAR_ARGTYPES``); without ``cpl`` (K4-K6,
-    whose layout is ``attend_layout``'s) the sixth is left out."""
+    """The trailing scalars (``SCALAR_ARGTYPES``); without ``cpl`` (K4-K6
+    and K10, whose layout is ``attend_layout``'s) the sixth is left out."""
     n, hf = x.shape
     lanes = [columns_per_lane(heads, hf // heads)] if cpl else []
     return [n, heads, hf // heads, int(x.dtype == torch.bfloat16),

@@ -93,9 +93,7 @@ def edge_softmax(graph, scores, mask=None, stable: bool = True):
     if stable:
         # softmax is invariant to the subtracted constant: the kernel sees
         # detached scores and autograd never differentiates it
-        seg_max = _segment_max_kernel(s2.detach().contiguous(),
-                                      graph.receivers, graph.row_ptr,
-                                      graph.n_nodes)
+        seg_max = _segment_max_kernel(graph, s2.detach().contiguous())
         seg_max = torch.where(seg_max > neg / 2, seg_max, 0.0)
         s2 = s2 - seg_max[graph.receivers]
     e = torch.where(m2, torch.exp(s2), 0.0)

@@ -13,7 +13,7 @@ float32 tiles, draws ``x`` [N, H, F] in ``--dtype`` and float32 logits
 from the same seed, and times each stage in isolation, forward only:
 
   nmax_tiles  K7, the tiles' neighbour max of f_src
-  nmax_rem    K2, the remainder's segment max of f_src (with its gather)
+  nmax_rem    K2, the remainder's segment max of f_src (read at the senders)
   tile_parts  K9, the tiles' softmax partials
   rem_parts   K8, the remainder's softmax partials
   fused       K10, the tile pass seeded with partials, divided
@@ -128,7 +128,7 @@ def main(argv=None) -> dict:
     num_x = num0.view(n, heads, feat).to(dtype)
     calls = {
         "nmax_tiles": lambda: bcsr_neighbor_max(bg, fs),
-        "nmax_rem": lambda: _rem_segment_max(rem, fs[rem.senders]),
+        "nmax_rem": lambda: _rem_segment_max(rem, fs),
         "tile_parts": lambda: _TileParts.apply(x2, fs, fd, m0, hg, None,
                                                SLOPE, 1.0),
         "rem_parts": lambda: _RemParts.apply(x2, fs, fd, m0, hg, None,

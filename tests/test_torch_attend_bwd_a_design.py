@@ -19,9 +19,10 @@ Pinned here:
     four; every other layout is theirs;
   * the launch arguments of K5 (``bwd_a_args``), K8 (``rem_attend_args``),
     K9 (``tile_parts_args``) and K10 (``attend_fused_args``), built without
-    a card at 8x256, 4x512 and 2x600: heads wider than K8-K10's lane group
-    holds in one window of 32 columns a lane, where the host raised before
-    (``columns_per_lane``); each argument converts to its ctypes type;
+    a card at 8x256, 4x512 and 2x600: heads wider than K8's and K9's lane
+    group holds in one window of 32 columns a lane, where the host raised
+    before (``columns_per_lane``), and K10 on the walk's layout; each
+    argument converts to its ctypes type;
   * the port's plain K5 and K8-K10 at 8x256 against JAX's kernels in TPU
     interpret mode.
 
@@ -300,9 +301,10 @@ def _converts(args, argtypes):
                          ids=[f"{h}x{f}" for h, f in WIDE])
 def test_launch_args_at_wide_heads(graphs, heads, feat, dtype):
     """The host side of K5, K8, K9 and K10 builds its launch arguments at
-    heads wider than K8-K10's lane group holds in one window (it raised
-    there, in ``columns_per_lane``): K8-K10 take 32 columns a lane and
-    walk the head in windows; K5 takes the walk's layout."""
+    heads wider than K8's and K9's lane group holds in one window (it
+    raised there, in ``columns_per_lane``): K8 and K9 take 32 columns a
+    lane and walk the head in windows; K5 and K10 take the walk's
+    layout."""
     th = graphs[1]
     n = th.n_nodes
     x, gn, fs, fd, m, bits, keep_mul = _wide_operands(th, heads, feat, dtype)
@@ -318,13 +320,18 @@ def test_launch_args_at_wide_heads(graphs, heads, feat, dtype):
     assert k5[17:29] == [n, heads, feat, int(dtype == torch.bfloat16), 0,
                          *lay.args(), lay.parts, th.long_rows[0].numel(),
                          32]
+    k10 = k910.attend_fused_args(th, x, fs, fd, m, num, den, bits, num, den,
+                                 SLOPE, KEEP, 0)
+    _converts(k10, k910.FUSED_ENTRIES["gnn_attend_fused"])
+    lay = attend_layout(heads, feat, x.element_size())
+    assert k10[17:29] == [n, heads, feat, int(dtype == torch.bfloat16), 0,
+                          *lay.args(), lay.parts, th.long_rows[0].numel(),
+                          32]
     parts = {
         "gnn_rem_attend": k8.rem_attend_args(th, x, fs, fd, m, keep_mul,
                                              num, den, SLOPE, 0),
         "gnn_tile_parts": k910.tile_parts_args(th, x, fs, fd, m, bits, num,
                                                den, SLOPE, KEEP, 0),
-        "gnn_attend_fused": k910.attend_fused_args(
-            th, x, fs, fd, m, num, den, bits, num, den, SLOPE, KEEP, 0),
     }
     for entry, args in parts.items():
         argtypes = k910.PARTS_ENTRIES[entry]
