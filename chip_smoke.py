@@ -25,7 +25,9 @@ Phases, each printing one JSON line:
                its reverse (8x8, 1x251); float32 and
                bfloat16, with and without attention dropout; K8, K9 and
                K10 on the same operands with the three-pass shift, and
-               once at Cora 8x8 with the profiler's m = 0; K3 on the
+               once at Cora 8x8 with the profiler's m = 0; K8 on the hub
+               graph with its dense tiles left in the remainder (rows long
+               by their remainder alone, split by K8's own rule); K3 on the
                GCN Cora hybrid (F 128 and 7), the Pubmed SAGE hybrid (F 500,
                128 and 1) and the 2M-edge community graph's tiles and
                transpose tiles (F 128), float32 and bfloat16; K7 on the
@@ -58,10 +60,9 @@ Phases, each printing one JSON line:
                epochs with the mean aggregator (K3 and K1, no K7 or K2),
                then with ``--set aggregator=max`` (K7 and K2, no K3 or K1).
 Every CLI run must reach test_acc >= 0.80 with exact launch counts.
-Then a ``previous_design`` line (every K2-K7 and K10 case beside its
-previous design's time where ``PREVIOUS_DESIGN_MS`` records one, not
-measured here), a
-``kernels`` summary line (with the launch floor) and, last,
+Then a ``previous_design`` line (every K2-K10 case beside its previous
+design's time where ``PREVIOUS_DESIGN_MS`` records one, not measured
+here), a ``kernels`` summary line (with the launch floor) and, last,
 ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without the last line.
 """
@@ -124,8 +125,8 @@ ATTEND_LARGE = dict(n=131072, e=2 ** 21, comm=256, heads=8, feat=128)
 #: (kernel, graph, width); K3 and K7 (a CTA per quarter row block and
 #: 32-column slab) by (kernel, graph, x dtype, width); K4, K5 and K6
 #: (a warp per row, a lane group per head, two passes in K4) by (kernel,
-#: graph, x dtype, "HxF", dropout); K10 (a warp per row, a lane group per
-#: head) by the same and the shift. Recorded, not measured
+#: graph, x dtype, "HxF", dropout); K8, K9 and K10 (a warp per row, a
+#: lane group per head) by the same and the shift. Recorded, not measured
 #: by this script: ``previous_design`` prints them on a line of their own
 #: beside this run's times.
 PREVIOUS_DESIGN_MS = {
@@ -168,6 +169,24 @@ PREVIOUS_DESIGN_MS = {
     ("K10", "cora", "bfloat16", "8x256", True, "exact"): 0.07523,
     ("K10", "cora", "float32", "2x600", True, "exact"): 0.1102,
     ("K10", "cora", "bfloat16", "2x600", True, "exact"): 0.08988,
+    ("K8", "cora", "float32", "8x8", True, "exact"): 0.004070,
+    ("K8", "hub", "float32", "8x8", True, "exact"): 0.00743,
+    ("K8", "large", "float32", "8x128", False, "exact"): 1.329,
+    ("K8", "large", "float32", "8x128", True, "exact"): 1.332,
+    ("K8", "large", "bfloat16", "8x128", False, "exact"): 0.941,
+    ("K8", "cora", "float32", "8x256", True, "exact"): 0.06670,
+    ("K8", "cora", "bfloat16", "8x256", True, "exact"): 0.04524,
+    ("K8", "cora", "float32", "2x600", True, "exact"): 0.04428,
+    ("K8", "cora", "bfloat16", "2x600", True, "exact"): 0.04540,
+    ("K9", "cora", "float32", "8x8", True, "exact"): 0.005907,
+    ("K9", "hub", "float32", "8x8", True, "exact"): 0.01902,
+    ("K9", "large", "float32", "8x128", False, "exact"): 2.829,
+    ("K9", "large", "float32", "8x128", True, "exact"): 2.952,
+    ("K9", "large", "bfloat16", "8x128", False, "exact"): 2.486,
+    ("K9", "cora", "float32", "8x256", True, "exact"): 0.05144,
+    ("K9", "cora", "bfloat16", "8x256", True, "exact"): 0.04181,
+    ("K9", "cora", "float32", "2x600", True, "exact"): 0.04717,
+    ("K9", "cora", "bfloat16", "2x600", True, "exact"): 0.03876,
 }
 #: Attention dropout of the GAT path (and its keep rate in the checks).
 GAT_DROPOUT = 0.6
@@ -677,6 +696,51 @@ def _hub_hybrid(transpose=False):
     return hub
 
 
+#: ``min_edges_per_tile`` that no tile of ``_hub_graph`` reaches
+HUB_NO_TILES = 10 ** 6
+
+
+def _rem_split_cases(gen) -> list[dict]:
+    """K8 on ``_hub_graph`` with every edge left in the remainder (no tile
+    reaches ``HUB_NO_TILES``), 8 x 8 float32, dropout off and on, against
+    its plain version, then timed: the hub rows hold more than
+    ``LONG_ROW_EDGES`` remainder edges, so K8 splits them over a CTA by its
+    own rule (``HybridGraph.rem_long_rows``), which no graph of
+    ``attend_shapes`` reaches (the hub's long rows there are long by their
+    tile slots). The shift is the three-pass one, taken on the CPU."""
+    hub_s, hub_r, hub_n = _hub_graph()
+    hg = build_hybrid(hub_s, hub_r, hub_n, min_edges_per_tile=HUB_NO_TILES,
+                      device=DEVICE)
+    if hg.bcsr.n_edges or int(hg.rem_long_rows.numel()) == 0:
+        raise AssertionError(
+            f"hub graph without tiles: {hg.bcsr.n_edges} tiled edges, "
+            f"{int(hg.rem_long_rows.numel())} rows long by the remainder")
+    heads, feat = 8, 8
+    n = hg.n_nodes
+    x = torch.randn(n, heads * feat, device=DEVICE, generator=gen)
+    fs = torch.randn(n, heads, device=DEVICE, generator=gen)
+    fd = torch.randn(n, heads, device=DEVICE, generator=gen)
+    m = bcsr_attention.three_pass_shift(hg.to("cpu"), fs.cpu(), fd.cpu(),
+                                        0.2).to(DEVICE)
+    cases = []
+    for dropping in (False, True):
+        bits, keep_mul = (bcsr_attention.draw_dropout(
+            hg, heads, 1.0 - GAT_DROPOUT, gen) if dropping else (None, None))
+        args = (hg, x, fs, fd, m, keep_mul, 0.2)
+        num, den = k8.rem_attend(*args)
+        r_num, r_den = k8.rem_attend_plain(*args)
+        torch.cuda.synchronize()
+        tag = f"hub_rem float32 {heads}x{feat} dropout={dropping} m=exact"
+        errs = {"K8": _held("K8", tag, [("num", num, r_num, "float32"),
+                                        ("den", den, r_den, "float32")])}
+        calls = {"K8": (lambda a=args: k8.rem_attend(*a),
+                        lambda a=args: k8.rem_attend_plain(*a),
+                        (x, fs), (fd, m), (num, den))}
+        cases += _timed_cases(calls, errs, "hub_rem", hg, heads, feat,
+                              torch.float32, bits, (3, 5), shift="exact")
+    return cases
+
+
 def attend_shapes(cora_hybrid, hub, large):
     """(label, graph, heads, feat, plain reps) of the attend kernels'
     cases: the two GAT layers' widths at Cora, the hub graph (long rows
@@ -684,9 +748,9 @@ def attend_shapes(cora_hybrid, hub, large):
     shape; then one head at widths that take the walk's other column
     layouts (``attend_common.attend_layout``): two and four 16-byte vectors
     a lane, two and four scalars, and heads wider than a warp holds, split
-    into parts, on split rows; then heads wider than K8-K10's lane groups
-    hold in one window (8 x 256: K4-K6 in slabs of 2 heads; 2 x 600: in
-    parts on a multi-head row), 3 heads of 42 scalars (four a lane, a
+    into parts, on split rows; then heads wider than a lane group of 32
+    columns a lane holds (8 x 256: slabs of 2 heads; 2 x 600: in parts on
+    a multi-head row), 3 heads of 42 scalars (four a lane, a
     slab of a head count that is not a power of two) and one head of 301
     scalars (K5 in two parts of eight a lane, where one of 251 takes one
     part). The large shape is costly for the plain versions, so they run
@@ -712,7 +776,8 @@ def attend_shapes(cora_hybrid, hub, large):
 def phase_attend_kernels(cora_hybrid, large) -> list[dict]:
     """K4-K6 and K8-K10 at the GAT path's Cora shapes, a large community
     graph and a hub graph; float32 and bfloat16 (x and tiles), dropout off
-    and on; K8-K10 once more at Cora 8x8 with ``m = 0``."""
+    and on; K8-K10 once more at Cora 8x8 with ``m = 0``; K8 on rows long
+    by their remainder (``_rem_split_cases``)."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     hub = _hub_hybrid()
@@ -740,6 +805,7 @@ def phase_attend_kernels(cora_hybrid, large) -> list[dict]:
     fd = torch.randn(n, 8, device=DEVICE, generator=gen)
     cases += _parts_cases("cora", cora_hybrid, x, fs, fd, torch.zeros_like(fs),
                           None, None, (3, 5), "zero")
+    cases += _rem_split_cases(gen)
     emit({"phase": "kernels", "attend_seconds": time.perf_counter() - t0,
           "cases": len(cases)})
     return cases
@@ -1162,11 +1228,11 @@ KERNELS = {
            "graphneuralnetwork_tpu/ops/bcsr_attention.py:131",
            _width("pubmed", 500)),
     "K8": ("rem_attend",
-           "graphneuralnetwork_tpu_torch/csrc/attend_parts_kernel.cu",
+           "graphneuralnetwork_tpu_torch/csrc/attend_fused_kernel.cu",
            "graphneuralnetwork_tpu/ops/pallas/rem_attend_kernel.py:48",
            _cora_gat_train),
     "K9": ("tile_parts",
-           "graphneuralnetwork_tpu_torch/csrc/attend_parts_kernel.cu",
+           "graphneuralnetwork_tpu_torch/csrc/attend_fused_kernel.cu",
            "graphneuralnetwork_tpu/ops/bcsr_attention.py:417",
            _cora_gat_train),
     "K10": ("attend_fused",
@@ -1221,9 +1287,9 @@ def _attend_key(c) -> tuple:
 
 
 def previous_design(cases) -> dict:
-    """Each K2-K7 and K10 case's time in this run beside its previous
-    design's, which ``PREVIOUS_DESIGN_MS`` holds as recorded (None where it
-    holds none), not measured here."""
+    """Each K2-K10 case's time in this run beside its previous design's,
+    which ``PREVIOUS_DESIGN_MS`` holds as recorded (None where it holds
+    none), not measured here."""
     rows = []
     for c in cases:
         if c["kernel"] == "K2":
@@ -1232,7 +1298,7 @@ def previous_design(cases) -> dict:
         elif c["kernel"] in ("K3", "K7"):
             case = _tile_case(c)
             key = (c["kernel"], c["graph"], c["dtype"], c["shape"][1])
-        elif c["kernel"] in ("K4", "K5", "K6", "K10"):
+        elif c["kernel"] in ("K4", "K5", "K6", "K8", "K9", "K10"):
             key = _attend_key(c)
             case = (f"{c['dtype']} {key[3]} on {c['graph']}"
                     + (" with dropout" if c["dropout"] else "")

@@ -37,9 +37,10 @@ ROW_BLOCK = 128   # receiver rows per tile
 COL_BLOCK = 128   # sender columns per tile
 #: Remainder chunk width of the TPU attend kernels (``rem_fine_*`` spans).
 ATTEND_CHUNK = 256
-#: A row of K4's or K6's walk with more edges than this (remainder edges
-#: plus nonzero tile slots) is split over the 8 warps of a CTA of its own
-#: (``HybridGraph.long_rows``); picked on the hub case (PERF.md §6).
+#: A row of the attend walk with more edges than this (remainder edges
+#: plus nonzero tile slots; K8: remainder edges) is split over the 8 warps
+#: of a CTA of its own (``HybridGraph.long_rows``, ``rem_long_rows``);
+#: picked on the hub case (PERF.md §6).
 LONG_ROW_EDGES = 32
 
 
@@ -251,6 +252,16 @@ class HybridGraph:
         Built at first use (a host sync) and kept with the graph."""
         return tuple(torch.nonzero(c > LONG_ROW_EDGES).flatten().int()
                      for c in self.row_edges)
+
+    @functools.cached_property
+    def rem_long_rows(self) -> torch.Tensor:
+        """int32: the receiver rows (ascending) whose remainder edges alone
+        number more than ``LONG_ROW_EDGES`` (``rem.row_ptr``). K8, which
+        walks only the remainder, gives each such row a CTA of its own, so
+        that a row long only by its tile slots keeps one warp. Built at
+        first use (a host sync) and kept with the graph."""
+        counts = self.rem.row_ptr[1:] - self.rem.row_ptr[:-1]
+        return torch.nonzero(counts > LONG_ROW_EDGES).flatten().int()
 
     def to(self, device) -> "HybridGraph":
         return _tensors_to(self, device)

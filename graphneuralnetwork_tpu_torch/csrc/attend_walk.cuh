@@ -1,7 +1,8 @@
 // The row walk of the redesigned hybrid attend kernels K4
 // (attend_online_kernel.cu), K5 and K6 (passes A and B of
-// attend_bwd_kernel.cu) and K10 (attend_fused_kernel.cu), for Hopper
-// (sm_90a).
+// attend_bwd_kernel.cu) and K8, K9 and K10 (the three modes of
+// attend_fused_kernel.cu, each over one part of the row's stream), for
+// Hopper (sm_90a).
 //
 // A work item is one row of the hybrid layout (K4 and K5: a receiver row of
 // the forward tiles and the receiver-sorted remainder; K6: a sender row of

@@ -161,7 +161,7 @@ def bwd_a_args(hg: HybridGraph, x: torch.Tensor, gn: torch.Tensor,
     lay = walk_layout(heads, x, gn, wide_scalars=WIDE_SCALARS_PER_LANE)
     long_rows = hg.long_rows[0]
     scalars = scalar_args(x, bg.tiles, heads, slope, keep_prob,
-                          keep_prob < 1.0, stream, cpl=False)
+                          keep_prob < 1.0, stream)
     return [x.data_ptr(), gn.data_ptr(), f_src.data_ptr(), fdm3.data_ptr(),
             bg.tiles.data_ptr(), ptr(bits), bg.col_ids.data_ptr(),
             bg.tile_off.data_ptr(), bg.tile_cnt.data_ptr(),
@@ -215,7 +215,7 @@ def attend_bwd_b(hg: HybridGraph, x: torch.Tensor, gn: torch.Tensor,
     lay = walk_layout(heads, x, gn, dx)
     long_rows = hg.long_rows[1]
     scalars = scalar_args(x, bg_t.tiles, heads, slope, keep_prob, dropping,
-                          cuda_stream(x), cpl=False)
+                          cuda_stream(x))
     lib = load("attend_bwd_kernel", _ENTRIES)
     with torch.cuda.device(x.device):
         err = lib.gnn_attend_bwd_b(

@@ -4,9 +4,8 @@ share.
 The dropout hash (``head_keep``) and its constants, the edge lists that the
 plain versions build from the hybrid layout, the softmax partials over such
 a list (``softmax_parts``), the checks and launch arguments of the
-wrappers, the column layout of K4-K6's row walk (``attend_layout``,
-``csrc/attend_walk.cuh``, K10's too) and K8's and K9's columns per lane
-(``columns_per_lane``). Pure PyTorch: nothing here
+wrappers, and the column layout of the kernels' row walk
+(``attend_layout``, ``csrc/attend_walk.cuh``). Pure PyTorch: nothing here
 builds or loads a kernel.
 """
 
@@ -24,13 +23,11 @@ from ...core.bcsr import (COL_BLOCK, LONG_ROW_EDGES, ROW_BLOCK, BCSRGraph,
 
 NEG = -1e30  # "-inf" stand-in that survives float32 arithmetic
 _MASK32 = 0xFFFFFFFF
-#: Columns per lane (of a window) K8 and K9 are compiled for.
-CPL_CHOICES = (1, 2, 4, 8, 16, 32)
 #: Elements of a per-edge [E, H*F] temporary of the plain versions.
 PLAIN_CHUNK_ELEMENTS = 1 << 26
-#: K4-K6's row walk (``csrc/attend_walk.cuh``): heads of a slab at
-#: most (``kSlabHeads``), vectors a lane holds at most, columns a lane holds
-#: at most.
+#: The row walk of K4-K6 and K8-K10 (``csrc/attend_walk.cuh``): heads of
+#: a slab at most (``kSlabHeads``), vectors a lane holds at most, columns a
+#: lane holds at most.
 SLAB_HEADS = 8
 MAX_VECS_PER_LANE = 4
 MAX_COLS_PER_LANE = 16
@@ -168,20 +165,9 @@ def softmax_parts(recv: torch.Tensor, send: torch.Tensor, w: torch.Tensor,
     return num, den
 
 
-def columns_per_lane(heads: int, feat: int) -> int:
-    """Feature columns per lane of K8 and K9: a warp gives each head 32 / Hp
-    lanes (Hp the head count rounded up to a power of two), which share its
-    ``feat`` columns; the fewest that cover them, or the most (32), where
-    the kernel walks a wider head in windows of that many columns a
-    lane."""
-    group = 32 // (1 << (heads - 1).bit_length())
-    return next((cpl for cpl in CPL_CHOICES if group * cpl >= feat),
-                CPL_CHOICES[-1])
-
-
 @dataclasses.dataclass(frozen=True)
 class AttendLayout:
-    """The column layout of K4-K6's row walk: vectors of ``vec``
+    """The column layout of the row walk (K4-K6, K8-K10): vectors of ``vec``
     elements (16 bytes, or 1 element where the head width or the address
     does not allow 16), ``nv`` of them a lane, ``lpe`` lanes an edge (32 /
     ``lpe`` edges at a time); slabs of ``slab_heads`` whole heads or, with
@@ -302,10 +288,10 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-#: ctypes argument types of the trailing scalars every entry takes:
-#: n, heads, feat, x_bf16, tile_bf16, cpl, slope, inv_keep, thresh,
-#: dropping, stream.
-SCALAR_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float,
+#: ctypes argument types of ``scalar_args``: n, heads, feat, x_bf16,
+#: tile_bf16, then the trailing slope, inv_keep, thresh, dropping, stream
+#: (the entries take the column layout between the two).
+SCALAR_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_float,
                                         ctypes.c_uint32, ctypes.c_int,
                                         ctypes.c_void_p]
 
@@ -316,13 +302,11 @@ def cuda_stream(x: torch.Tensor) -> int:
 
 
 def scalar_args(x: torch.Tensor, tiles: torch.Tensor, heads: int,
-                slope: float, keep_prob: float, dropping: bool, stream: int,
-                cpl: bool = True) -> list:
-    """The trailing scalars (``SCALAR_ARGTYPES``); without ``cpl`` (K4-K6
-    and K10, whose layout is ``attend_layout``'s) the sixth is left out."""
+                slope: float, keep_prob: float, dropping: bool,
+                stream: int) -> list:
+    """The scalars of ``SCALAR_ARGTYPES``."""
     n, hf = x.shape
-    lanes = [columns_per_lane(heads, hf // heads)] if cpl else []
     return [n, heads, hf // heads, int(x.dtype == torch.bfloat16),
-            int(tiles.dtype == torch.bfloat16), *lanes,
-            float(slope), float(np.float32(1.0 / keep_prob)),
+            int(tiles.dtype == torch.bfloat16), float(slope),
+            float(np.float32(1.0 / keep_prob)),
             keep_thresh(keep_prob) if dropping else 0, int(dropping), stream]

@@ -117,7 +117,7 @@ def attend_online(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
     lay = walk_layout(heads, x, out)
     long_rows = hg.long_rows[0]
     scalars = scalar_args(x, bg.tiles, heads, slope, keep_prob, dropping,
-                          cuda_stream(x), cpl=False)
+                          cuda_stream(x))
     lib = load("attend_online_kernel", _ENTRIES)
     with torch.cuda.device(x.device):
         err = lib.gnn_attend_online(

@@ -1,6 +1,6 @@
 """K9 and K10: the dense tiles' softmax partials, given the shift
-(``csrc/attend_parts_kernel.cu``, entry ``gnn_tile_parts``, and
-``csrc/attend_fused_kernel.cu``, entry ``gnn_attend_fused``).
+(``csrc/attend_fused_kernel.cu``, entries ``gnn_tile_parts`` and
+``gnn_attend_fused``).
 
 For every receiver r and head h over the nonzero slots s -> r of the
 forward tiles of the hybrid graph ``hg``, with the shift ``m`` given:
@@ -23,15 +23,14 @@ forward tiles of the hybrid graph ``hg``, with the shift ``m`` given:
 
 They replace the TPU kernels ``_attend_kernel`` (``_parts_pallas``) and
 ``_attend_fused_kernel`` (``_fused_pallas``) of
-``graphneuralnetwork_tpu/ops/bcsr_attention.py``; the design notes are in
-the CUDA sources. K9: a warp per receiver row, a lane group per head, and a
-head wider than the group's 32 columns a lane walked in windows of that
-width, one warp a (row, window). K10: K4's row walk
-(``csrc/attend_walk.cuh``) over each row's tile slots only, a slab of its
-columns at a time (``attend_common.walk_layout``; a head wider than a
-warp holds in parts on the grid), the shift given, the sums seeded with
-the remainder's partials; rows above the threshold of
-``HybridGraph.long_rows`` split over a CTA.
+``graphneuralnetwork_tpu/ops/bcsr_attention.py``; the design note is in
+the CUDA source. Both are modes of one kernel with K8
+(``rem_attend_kernel``): K4's row walk (``csrc/attend_walk.cuh``) over
+each row's tile slots only, a slab of its columns at a time
+(``attend_common.walk_layout``; a head wider than a warp holds in parts
+on the grid), the shift given, K10's sums seeded with the remainder's
+partials; rows above the threshold of ``HybridGraph.long_rows`` split
+over a CTA.
 ``tile_parts_args`` and ``attend_fused_args`` build the launch arguments.
 A CUDA tensor launches the kernel; a CPU tensor takes ``tile_parts_plain``
 / ``attend_fused_plain``. ``tile_parts.launches`` and
@@ -51,18 +50,23 @@ from .attend_common import (LONG_ROW_EDGES, SCALAR_ARGTYPES,
                             softmax_parts, tile_edges, walk_layout)
 from .build import check, load
 
-#: the two entries of K8's and K9's library, declared at its first load
+#: K8's and K9's entries: pointers, then n, heads, feat, x_bf16,
+#: tile_bf16 (K9), the column layout (vec, nv, lpe, slab_heads, parts),
+#: n_long, long_edges, and the trailing slope, inv_keep and thresh (K9),
+#: dropping, stream
 PARTS_ENTRIES = {
-    "gnn_rem_attend": [ctypes.c_void_p] * 10 + SCALAR_ARGTYPES,
-    "gnn_tile_parts": [ctypes.c_void_p] * 11 + SCALAR_ARGTYPES,
+    "gnn_rem_attend": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "gnn_tile_parts": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 12
+    + SCALAR_ARGTYPES[-5:],
 }
-#: K10's entry: pointers, then n, heads, feat, x_bf16, tile_bf16, the
-#: column layout (vec, nv, lpe, slab_heads, parts), n_long, long_edges, and
-#: the trailing slope, inv_keep, thresh, dropping, stream
+#: K10's entry, the same way
 FUSED_ENTRIES = {
     "gnn_attend_fused": [ctypes.c_void_p] * 17 + [ctypes.c_int] * 12
     + SCALAR_ARGTYPES[-5:],
 }
+#: the three entries of the one library, declared at its first load
+WALK_ENTRIES = {**PARTS_ENTRIES, **FUSED_ENTRIES}
 
 
 def tile_parts_plain(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
@@ -122,14 +126,23 @@ def tile_parts_args(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
                     bits: Optional[torch.Tensor], num: torch.Tensor,
                     den: torch.Tensor, slope: float, keep_prob: float,
                     stream: int) -> list:
-    """``gnn_tile_parts``'s arguments (``PARTS_ENTRIES``)."""
+    """``gnn_tile_parts``'s arguments (``PARTS_ENTRIES``): K10's without
+    the seeds (the forward tiles, their row masks, the remainder's spans,
+    the forward row lengths and long rows), and the column layout of ``x``
+    and ``num`` (``walk_layout``)."""
+    heads = f_src.shape[1]
     bg = hg.bcsr
+    lay = walk_layout(heads, x, num)
+    long_rows = hg.long_rows[0]
+    scalars = scalar_args(x, bg.tiles, heads, slope, keep_prob,
+                          keep_prob < 1.0, stream)
     return [x.data_ptr(), f_src.data_ptr(), f_dst.data_ptr(), m.data_ptr(),
             bg.tiles.data_ptr(), ptr(bits), bg.col_ids.data_ptr(),
-            bg.tile_off.data_ptr(), bg.tile_cnt.data_ptr(), num.data_ptr(),
-            den.data_ptr(),
-            *scalar_args(x, bg.tiles, f_src.shape[1], slope, keep_prob,
-                         keep_prob < 1.0, stream)]
+            bg.tile_off.data_ptr(), bg.tile_cnt.data_ptr(),
+            bg.row_masks.data_ptr(), hg.rem.row_ptr.data_ptr(),
+            hg.row_edges[0].data_ptr(), long_rows.data_ptr(), num.data_ptr(),
+            den.data_ptr(), *scalars[:5], *lay.args(), lay.parts,
+            long_rows.numel(), LONG_ROW_EDGES, *scalars[-5:]]
 
 
 def attend_fused_args(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
@@ -148,7 +161,7 @@ def attend_fused_args(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
     lay = walk_layout(heads, x, num_init, out)
     long_rows = hg.long_rows[0]
     scalars = scalar_args(x, bg.tiles, heads, slope, keep_prob,
-                          keep_prob < 1.0, stream, cpl=False)
+                          keep_prob < 1.0, stream)
     return [x.data_ptr(), f_src.data_ptr(), f_dst.data_ptr(), m.data_ptr(),
             bg.tiles.data_ptr(), ptr(bits), bg.col_ids.data_ptr(),
             bg.tile_off.data_ptr(), bg.tile_cnt.data_ptr(),
@@ -174,7 +187,7 @@ def tile_parts(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
         return num, den
     args = tile_parts_args(hg, x, f_src, f_dst, m, bits, num, den, slope,
                            keep_prob, cuda_stream(x))
-    lib = load("attend_parts_kernel", PARTS_ENTRIES)
+    lib = load("attend_fused_kernel", WALK_ENTRIES)
     with torch.cuda.device(x.device):
         err = lib.gnn_tile_parts(*args)
     check(lib, err, "tile_parts kernel launch")
@@ -201,7 +214,7 @@ def attend_fused(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
     args = attend_fused_args(hg, x, f_src, f_dst, m, num_init, den_init,
                              bits, out, den, slope, keep_prob,
                              cuda_stream(x))
-    lib = load("attend_fused_kernel", FUSED_ENTRIES)
+    lib = load("attend_fused_kernel", WALK_ENTRIES)
     with torch.cuda.device(x.device):
         err = lib.gnn_attend_fused(*args)
     check(lib, err, "attend_fused kernel launch")

@@ -1,5 +1,5 @@
 """K8: the COO remainder's softmax partials, given the shift
-(``csrc/attend_parts_kernel.cu``, entry ``gnn_rem_attend``).
+(``csrc/attend_fused_kernel.cu``, entry ``gnn_rem_attend``).
 
 ``rem_attend(hg, x, f_src, f_dst, m, keep_mul, slope)`` computes, for every
 receiver r and head h over the real remainder edges s -> r of the hybrid
@@ -18,8 +18,12 @@ every term at ``w``.
 
 It replaces the TPU kernel ``_rem_attend_kernel`` of
 ``graphneuralnetwork_tpu/ops/pallas/rem_attend_kernel.py``
-(``rem_attend_pallas``); the design note is in the CUDA source.
-``rem_attend_args`` builds the launch arguments. A CUDA tensor launches
+(``rem_attend_pallas``); the design note is in the CUDA source: a mode of
+the row walk that runs K9 and K10 (``attend_parts_kernel``), over each
+receiver row's remainder edges only, a slab of its columns at a time
+(``attend_common.walk_layout``); rows whose remainder alone holds more
+than ``LONG_ROW_EDGES`` edges (``HybridGraph.rem_long_rows``) split over
+a CTA. ``rem_attend_args`` builds the launch arguments. A CUDA tensor launches
 the kernel; a CPU tensor takes ``rem_attend_plain``.
 ``rem_attend.launches`` counts kernel launches.
 """
@@ -31,9 +35,9 @@ from typing import Optional
 import torch
 
 from ...core.bcsr import HybridGraph
-from .attend_common import (check_operands, cuda_stream, ptr, rem_edges,
-                            scalar_args, softmax_parts)
-from .attend_parts_kernel import PARTS_ENTRIES
+from .attend_common import (LONG_ROW_EDGES, check_operands, cuda_stream,
+                            ptr, rem_edges, softmax_parts, walk_layout)
+from .attend_parts_kernel import WALK_ENTRIES
 from .build import check, load
 
 
@@ -53,14 +57,22 @@ def rem_attend_args(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
                     f_dst: torch.Tensor, m: torch.Tensor,
                     keep_mul: Optional[torch.Tensor], num: torch.Tensor,
                     den: torch.Tensor, slope: float, stream: int) -> list:
-    """``gnn_rem_attend``'s arguments (``PARTS_ENTRIES``)."""
+    """``gnn_rem_attend``'s arguments (``PARTS_ENTRIES``): the remainder
+    (senders, weights, spans), ``keep_mul``, the rows long by their
+    remainder alone (``HybridGraph.rem_long_rows``) and the column layout
+    of ``x`` and ``num`` (``walk_layout``); no tile operand."""
+    heads = f_src.shape[1]
     rem = hg.rem
+    lay = walk_layout(heads, x, num)
+    long_rows = hg.rem_long_rows
+    n, hf = x.shape
     return [x.data_ptr(), f_src.data_ptr(), f_dst.data_ptr(), m.data_ptr(),
-            rem.senders.data_ptr(), rem.row_ptr.data_ptr(),
-            rem.edge_weight.data_ptr(), ptr(keep_mul), num.data_ptr(),
-            den.data_ptr(),
-            *scalar_args(x, hg.bcsr.tiles, f_src.shape[1], slope, 1.0,
-                         keep_mul is not None, stream)]
+            rem.senders.data_ptr(), rem.edge_weight.data_ptr(),
+            rem.row_ptr.data_ptr(), ptr(keep_mul), long_rows.data_ptr(),
+            num.data_ptr(), den.data_ptr(), n, heads, hf // heads,
+            int(x.dtype == torch.bfloat16), *lay.args(), lay.parts,
+            long_rows.numel(), LONG_ROW_EDGES, float(slope),
+            int(keep_mul is not None), stream]
 
 
 def rem_attend(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
@@ -81,7 +93,7 @@ def rem_attend(hg: HybridGraph, x: torch.Tensor, f_src: torch.Tensor,
         return num, den
     args = rem_attend_args(hg, x, f_src, f_dst, m, keep_mul, num, den, slope,
                            cuda_stream(x))
-    lib = load("attend_parts_kernel", PARTS_ENTRIES)
+    lib = load("attend_fused_kernel", WALK_ENTRIES)
     with torch.cuda.device(x.device):
         err = lib.gnn_rem_attend(*args)
     check(lib, err, "rem_attend kernel launch")

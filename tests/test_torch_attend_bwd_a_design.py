@@ -19,10 +19,10 @@ Pinned here:
     four; every other layout is theirs;
   * the launch arguments of K5 (``bwd_a_args``), K8 (``rem_attend_args``),
     K9 (``tile_parts_args``) and K10 (``attend_fused_args``), built without
-    a card at 8x256, 4x512 and 2x600: heads wider than K8's and K9's lane
-    group holds in one window of 32 columns a lane, where the host raised
-    before (``columns_per_lane``), and K10 on the walk's layout; each
-    argument converts to its ctypes type;
+    a card at 8x256, 4x512 and 2x600, heads wider than a lane group of 32
+    columns a lane holds, where the host once raised: each on the walk's
+    layout (K5's own for a head of scalars); each argument converts to its
+    ctypes type;
   * the port's plain K5 and K8-K10 at 8x256 against JAX's kernels in TPU
     interpret mode.
 
@@ -51,8 +51,8 @@ from graphneuralnetwork_tpu_torch.ops.cuda import (  # noqa: E402
     attend_bwd_kernel as k56, attend_parts_kernel as k910,
     rem_attend_kernel as k8)
 from graphneuralnetwork_tpu_torch.ops.cuda.attend_common import (  # noqa: E402
-    MAX_VECS_PER_LANE, WIDE_SCALARS_PER_LANE, attend_layout,
-    columns_per_lane, leaky, leaky_grad)
+    MAX_VECS_PER_LANE, WIDE_SCALARS_PER_LANE, attend_layout, leaky,
+    leaky_grad)
 from test_torch_attend_design import (  # noqa: E402
     BATCH, WARPS, _hybrids, _stream)
 from test_torch_attend_parts import (  # noqa: E402, F401 (graphs: a fixture)
@@ -301,15 +301,14 @@ def _converts(args, argtypes):
                          ids=[f"{h}x{f}" for h, f in WIDE])
 def test_launch_args_at_wide_heads(graphs, heads, feat, dtype):
     """The host side of K5, K8, K9 and K10 builds its launch arguments at
-    heads wider than K8's and K9's lane group holds in one window (it
-    raised there, in ``columns_per_lane``): K8 and K9 take 32 columns a
-    lane and walk the head in windows; K5 and K10 take the walk's
-    layout."""
+    heads wider than a lane group of 32 columns a lane holds (where the
+    host once raised): all four take the walk's layout, slabs of whole
+    heads or a head's parts on the grid, with no windows."""
     th = graphs[1]
     n = th.n_nodes
     x, gn, fs, fd, m, bits, keep_mul = _wide_operands(th, heads, feat, dtype)
     group = 32 // (1 << (heads - 1).bit_length())
-    assert columns_per_lane(heads, feat) == 32 and group * 32 < feat
+    assert group * 32 < feat
     num = torch.empty(n, heads * feat)
     den = torch.empty(n, heads)
     fdm3 = torch.cat([fd, m, fs], 1)
@@ -327,19 +326,20 @@ def test_launch_args_at_wide_heads(graphs, heads, feat, dtype):
     assert k10[17:29] == [n, heads, feat, int(dtype == torch.bfloat16), 0,
                           *lay.args(), lay.parts, th.long_rows[0].numel(),
                           32]
-    parts = {
-        "gnn_rem_attend": k8.rem_attend_args(th, x, fs, fd, m, keep_mul,
-                                             num, den, SLOPE, 0),
-        "gnn_tile_parts": k910.tile_parts_args(th, x, fs, fd, m, bits, num,
-                                               den, SLOPE, KEEP, 0),
-    }
-    for entry, args in parts.items():
-        argtypes = k910.PARTS_ENTRIES[entry]
-        _converts(args, argtypes)
-        scalars = args[len(argtypes) - 11:]
-        assert scalars[:6] == [n, heads, feat,
-                               int(dtype == torch.bfloat16), 0, 32], entry
-        assert scalars[-1] == 0 and scalars[-2] == 1   # stream, dropping
+    k8_args = k8.rem_attend_args(th, x, fs, fd, m, keep_mul, num, den,
+                                 SLOPE, 0)
+    _converts(k8_args, k910.PARTS_ENTRIES["gnn_rem_attend"])
+    assert k8_args[11:22] == [n, heads, feat, int(dtype == torch.bfloat16),
+                              *lay.args(), lay.parts,
+                              th.rem_long_rows.numel(), 32]
+    k9_args = k910.tile_parts_args(th, x, fs, fd, m, bits, num, den, SLOPE,
+                                   KEEP, 0)
+    _converts(k9_args, k910.PARTS_ENTRIES["gnn_tile_parts"])
+    assert k9_args[15:27] == [n, heads, feat, int(dtype == torch.bfloat16),
+                              0, *lay.args(), lay.parts,
+                              th.long_rows[0].numel(), 32]
+    for args in (k8_args, k9_args):
+        assert args[-1] == 0 and args[-2] == 1   # stream, dropping
 
 
 # ------------------------------------- JAX against the port at 8 x 256
