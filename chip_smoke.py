@@ -47,19 +47,34 @@ Phases, each printing one JSON line:
   6. profile_attend — ``tools/profile_attend.py`` at its default shape in
                bfloat16 and float32: every stage's time and its exact
                launches per call (K9 only in ``tile_parts``);
-  7. gcn     — the main path: ``--model gcn`` through the CLI entry point
+  7. capture — the captured epoch block (``train/scan_loop.py``: one
+               epoch captured as a CUDA graph, replayed) for each of the
+               CLI's eight configurations below, as the CLI builds them:
+               (a) without dropout, a 20-epoch captured block against
+               ``run_epochs`` from a twin state (each row within
+               ``TOL[dtype]``) and, in float32, its first 5 rows against
+               the CPU's eager loop (``PATH_TOL``); (b) with the CLI's
+               dropout, two replays must draw other masks at every
+               dropout site (``dropout``, ``draw_dropout``), and whether
+               they equal the eager loop's draws is reported; (c) wall ms
+               per epoch of a captured and an eager block; then (a) for
+               GCN with SGD + warmup-poly, all 20 rows and the final
+               parameters against the CPU's ``LambdaLR``;
+  8. gcn     — the main path: ``--model gcn`` through the CLI entry point
                (auto layout -> COO), 200 epochs; K1 must have launched;
-  8. gat     — ``--model gat --layout coo``, 50 epochs; K1 and K2 must have
+  9. gat     — ``--model gat --layout coo``, 50 epochs; K1 and K2 must have
                launched;
-  9. gat_hybrid — ``--model gat`` (auto layout -> hybrid), 50 epochs in
+ 10. gat_hybrid — ``--model gat`` (auto layout -> hybrid), 50 epochs in
                float32, then in bfloat16; exact K4/K5/K6 launch counts and
                no K1 or K2 launch;
- 10. gcn_hybrid — ``--model gcn --layout hybrid``, 200 epochs in float32,
+ 11. gcn_hybrid — ``--model gcn --layout hybrid``, 200 epochs in float32,
                then in bfloat16; exact K3 and K1 launch counts;
- 11. graphsage_hybrid(_max) — ``--model graphsage --layout hybrid``, 100
+ 12. graphsage_hybrid(_max) — ``--model graphsage --layout hybrid``, 100
                epochs with the mean aggregator (K3 and K1, no K7 or K2),
                then with ``--set aggregator=max`` (K7 and K2, no K3 or K1).
-Every CLI run must reach test_acc >= 0.80 with exact launch counts.
+Every CLI run trains in the captured block (a warm-up epoch, one capture,
+replays; the launch counts add a replay's captured launches) and must
+reach test_acc >= 0.80 with exact launch counts.
 Then a ``previous_design`` line (every K2-K10 case beside its previous
 design's time where ``PREVIOUS_DESIGN_MS`` records one, not measured
 here), a ``kernels`` summary line (with the launch floor) and, last,
@@ -84,6 +99,8 @@ from graphneuralnetwork_tpu_torch.core.bcsr import (COL_BLOCK, ROW_BLOCK,
 from graphneuralnetwork_tpu_torch.core.graph import build_graph
 from graphneuralnetwork_tpu_torch.data import load_cora, load_pubmed_fullbatch
 from graphneuralnetwork_tpu_torch.nn import GAT, GCN, GraphSAGE
+from graphneuralnetwork_tpu_torch.nn import conv as nn_conv
+from graphneuralnetwork_tpu_torch.nn import models as nn_models
 from graphneuralnetwork_tpu_torch.ops import bcsr_attention
 from graphneuralnetwork_tpu_torch.ops.cuda import attend_bwd_kernel as k56
 from graphneuralnetwork_tpu_torch.ops.cuda import attend_online_kernel as k4
@@ -100,8 +117,14 @@ from graphneuralnetwork_tpu_torch.ops.cuda.counters import (COUNTERS,
                                                             reset_launches)
 from graphneuralnetwork_tpu_torch.tools import profile_attend
 from graphneuralnetwork_tpu_torch.tools.timing import time_ms
+from graphneuralnetwork_tpu_torch.train.loop import (create_train_state,
+                                                     make_eval_fn)
 from graphneuralnetwork_tpu_torch.train.metrics import (
     masked_softmax_cross_entropy)
+from graphneuralnetwork_tpu_torch.train.scan_loop import (
+    make_scanned_node_classification_run, run_epochs)
+from graphneuralnetwork_tpu_torch.train.schedule import (make_optimizer,
+                                                         warmup_poly_factor)
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32 rate
 #: outside the tensor cores — K1 accumulates and K2 compares in float32.
@@ -1157,6 +1180,247 @@ def phase_profile_attend() -> dict:
     return launches
 
 
+#: The captured block against the eager one: epochs of one block, and the
+#: first epochs also held against the CPU's eager loop (all of them with
+#: SGD, whose schedule then runs to its end).
+CAPTURE_EPOCHS, CPU_EPOCHS = 20, 5
+
+
+def cli_configs(cora, cora_h, cora_h16, cora_g, pubmed) -> dict:
+    """The CLI's eight training configurations as ``cli.py`` builds them,
+    by phase name: (data, model of a dropout rate, optimizer, compute
+    dtype, the CLI's dropout rate or None where the model has none)."""
+    f, c = cora.features.shape[1], cora.num_classes
+    bf16 = torch.bfloat16
+
+    def gcn(dtype=None):
+        return lambda p: GCN(f, hidden=128, num_classes=c, dropout=p,
+                             dtype=dtype)
+
+    def gat(dtype=None):
+        return lambda p: GAT(f, hidden=8, num_heads=8, num_classes=c,
+                             dropout=p, dtype=dtype)
+
+    def sage(agg):
+        return lambda p: GraphSAGE(pubmed.features.shape[1],
+                                   hidden_dims=(128,),
+                                   num_classes=pubmed.num_classes,
+                                   aggregator=agg)
+
+    gcn_opt = make_optimizer("adamw", 2e-3, weight_decay=5e-4)
+    gat_opt = make_optimizer("adamw", 1e-2, weight_decay=5e-4)
+    sage_opt = make_optimizer("adamw", 1e-2, weight_decay=1e-4)
+    return {
+        "gcn": (cora, gcn(), gcn_opt, "float32", 0.5),
+        "gat": (cora, gat(), gat_opt, "float32", 0.6),
+        "gat_hybrid": (cora_h, gat(), gat_opt, "float32", 0.6),
+        "gat_hybrid_bf16": (cora_h16, gat(bf16), gat_opt, "bfloat16", 0.6),
+        "gcn_hybrid": (cora_g, gcn(), gcn_opt, "float32", 0.5),
+        "gcn_hybrid_bf16": (cora_g, gcn(bf16), gcn_opt, "bfloat16", 0.5),
+        "graphsage_hybrid": (pubmed, sage("mean"), sage_opt, "float32",
+                             None),
+        "graphsage_hybrid_max": (pubmed, sage("max"), sage_opt, "float32",
+                                 None),
+    }
+
+
+def _on_cpu(data):
+    return dataclasses.replace(
+        data, graph=data.graph.to("cpu"), features=data.features.cpu(),
+        labels=data.labels.cpu(), train_idx=data.train_idx.cpu(),
+        val_idx=data.val_idx.cpu(), test_idx=data.test_idx.cpu(),
+        device=torch.device("cpu"))
+
+
+def _timed(block) -> tuple[np.ndarray, float]:
+    """A block's rows and its wall ms per epoch (the block ends in its
+    host read, which waits for the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = block()
+    return rows, (time.perf_counter() - t0) * 1e3 / len(rows)
+
+
+def _rows_err(got, want, tol) -> float:
+    """The largest ``|got - want|`` over ``rtol |want| + atol``; at most 1
+    where they agree within ``tol`` = (rtol, atol)."""
+    rtol, atol = tol
+    return float(np.max(np.abs(got - want) / (rtol * np.abs(want) + atol)))
+
+
+def _captured_vs_eager(data, make, opt, dtype, cpu_epochs,
+                       check=None) -> dict:
+    """(a) and (c): models without dropout, from one seed: a captured block
+    of ``CAPTURE_EPOCHS`` against ``run_epochs`` on a twin state, each
+    epoch's row within ``TOL[dtype]``; in float32 the first ``cpu_epochs``
+    rows also against the CPU's eager loop within ``PATH_TOL`` (the rows
+    are O(1)), and ``check(captured state, CPU state)`` adds its report.
+    Then one more block each, timed."""
+    states = [create_train_state(make(0.0), data, 0, opt) for _ in range(2)]
+    cap, eag = states
+    run = make_scanned_node_classification_run(cap.model, CAPTURE_EPOCHS)
+    evaluate = make_eval_fn(eag.model)
+    rows, first_ms = _timed(lambda: run(cap, data))
+    ref = run_epochs(eag, data, evaluate, CAPTURE_EPOCHS)
+    if rows.shape != (CAPTURE_EPOCHS, 4) or not np.isfinite(rows).all():
+        raise AssertionError(f"captured rows {rows}")
+    err = _rows_err(rows, ref, TOL[dtype])
+    if err > 1.0:
+        raise AssertionError(f"captured vs eager rows: {rows} against {ref} "
+                             f"(error {err} of TOL[{dtype}])")
+    out = {"captured_vs_eager_err_of_tol": err}
+    if dtype == "float32":
+        cpu_data = _on_cpu(data)
+        cpu = create_train_state(make(0.0), cpu_data, 0, opt)
+        cpu_rows = run_epochs(cpu, cpu_data, make_eval_fn(cpu.model),
+                              cpu_epochs)
+        cpu_err = float(np.abs(rows[:cpu_epochs] - cpu_rows).max())
+        if cpu_err > PATH_TOL:
+            raise AssertionError(f"captured vs CPU rows: {rows[:cpu_epochs]} "
+                                 f"against {cpu_rows}")
+        out.update(cpu_epochs=cpu_epochs, captured_vs_cpu_abs_err=cpu_err)
+        if check is not None:
+            out.update(check(cap, cpu))
+    _, captured_ms = _timed(lambda: run(cap, data))
+    _, eager_ms = _timed(lambda: run_epochs(eag, data, evaluate,
+                                            CAPTURE_EPOCHS))
+    out.update(first_block_ms_per_epoch=first_ms,
+               captured_ms_per_epoch=captured_ms, eager_ms_per_epoch=eager_ms)
+    return out
+
+
+def _sgd_schedule(cap, cpu) -> dict:
+    """The captured SGD block's schedule: its device count at
+    ``CAPTURE_EPOCHS`` steps, its table ``warmup_poly_factor`` at every
+    step, and its parameters, each relative to its largest entry, within
+    ``PATH_TOL`` of the CPU's (``torch.optim.SGD`` + ``LambdaLR``) after
+    the same steps."""
+    table = [warmup_poly_factor(t, CAPTURE_EPOCHS, 1)
+             for t in range(CAPTURE_EPOCHS + 1)]
+    sched = cap.scheduler
+    if (int(sched.count) != CAPTURE_EPOCHS
+            or sched.factors.cpu().tolist() != table):
+        raise AssertionError(f"SGD schedule: count {sched.count}, table "
+                             f"{sched.factors}")
+    errs = {k: _rel_err(p, q) for (k, p), q in
+            zip(cap.model.state_dict().items(),
+                cpu.model.state_dict().values())}
+    if max(errs.values()) > PATH_TOL:
+        raise AssertionError(f"SGD parameters captured vs CPU: {errs}")
+    return {"schedule_count": int(sched.count), "params_vs_cpu_rel_err": errs}
+
+
+def _recording_sites(records):
+    """Stand-ins for the dropout sites that append what each call drew to
+    ``records`` (clones: under capture, static outputs that each replay
+    rewrites): ``dropout``'s keep mask beside its input's support (the
+    mask shows only where the input is nonzero), ``draw_dropout``'s
+    ``bits`` and ``keep_mul``."""
+    drop, draw = nn_conv.dropout, bcsr_attention.draw_dropout
+
+    def dropout_at(site):
+        def recorded(x, rate, generator):
+            out = drop(x, rate, generator)
+            records.append((site, torch.stack([out != 0, x != 0])))
+            return out
+        return recorded
+
+    def draw_dropout(hg, heads, keep_prob, generator=None):
+        bits, keep_mul = draw(hg, heads, keep_prob, generator)
+        records.append(("draw_dropout", (bits.clone(), keep_mul.clone())))
+        return bits, keep_mul
+
+    return {(nn_models, "dropout"): dropout_at("dropout (features)"),
+            (nn_conv, "dropout"): dropout_at("dropout (attention)"),
+            (bcsr_attention, "draw_dropout"): draw_dropout}
+
+
+def _drawn(record) -> tuple:
+    site, drawn = record
+    return site, tuple(t.to("cpu", copy=True) for t in
+                       (drawn if isinstance(drawn, tuple) else (drawn,)))
+
+
+def _same_draw(a, b) -> bool:
+    """Whether two records drew the same: ``dropout``'s masks where both
+    inputs are nonzero, ``draw_dropout``'s operands bit for bit."""
+    if a[0].startswith("dropout"):
+        (ma,), (mb,) = a[1], b[1]
+        both = ma[1] & mb[1]
+        return bool(torch.equal(ma[0] & both, mb[0] & both))
+    return all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+
+def _fresh_draws(data, make, opt, rate) -> dict:
+    """(b): the model with the CLI's dropout ``rate``, as a captured block
+    of one epoch (the warm-up, then the capture) replayed twice: each
+    dropout site must draw other masks in the two replays. Also reports
+    whether each replay drew bit for bit what the eager loop draws in the
+    same epoch from the same seed (epochs 2 and 3)."""
+    records: list = []
+    patched = _recording_sites(records)
+    saved = {key: getattr(*key) for key in patched}
+    try:
+        for (module, name), fn in patched.items():
+            setattr(module, name, fn)
+        st = create_train_state(make(rate), data, 0, opt)
+        run = make_scanned_node_classification_run(st.model, 1)
+        run(st, data)
+        n = len(records) // 2
+        captured = records[n:]
+        replays = []
+        for _ in range(2):
+            run(st, data)
+            replays.append([_drawn(r) for r in captured])
+        records.clear()
+        eag = create_train_state(make(rate), data, 0, opt)
+        run_epochs(eag, data, make_eval_fn(eag.model), 3)
+        eager = [[_drawn(r) for r in records[i * n:(i + 1) * n]]
+                 for i in (1, 2)]
+    finally:
+        for (module, name), fn in saved.items():
+            setattr(module, name, fn)
+    if n == 0 or len(records) != 3 * n:
+        raise AssertionError(f"dropout sites drew {n} times an epoch "
+                             f"captured, {len(records)} in 3 eager epochs")
+    sites = {}
+    for i, (r1, r2) in enumerate(zip(*replays)):
+        key = f"{r1[0]} #{i}"
+        sites[key] = {
+            "fresh": not _same_draw(r1, r2),
+            "eager_bit_equal": all(_same_draw(replays[j][i], eager[j][i])
+                                   for j in (0, 1))}
+        if not sites[key]["fresh"]:
+            raise AssertionError(f"{key}: two replays drew the same masks")
+    return sites
+
+
+def phase_capture(configs) -> None:
+    """The captured epoch block (``train/scan_loop.py``) for each of the
+    CLI's configurations: (a) captured against eager and the CPU without
+    dropout, (b) fresh dropout draws in every replay, (c) wall ms per
+    epoch, captured and eager; then (a) for GCN with SGD + warmup-poly,
+    whose learning rate must follow ``warmup_poly_factor`` step for step:
+    all ``CAPTURE_EPOCHS`` rows and the final parameters against the CPU's
+    ``LambdaLR``, and the device count and table read back."""
+    t0 = time.perf_counter()
+    for phase, (data, make, opt, dtype, rate) in configs.items():
+        res = _captured_vs_eager(data, make, opt, dtype, CPU_EPOCHS)
+        res["dropout"] = ("no dropout" if rate is None
+                          else _fresh_draws(data, make, opt, rate))
+        emit({"phase": "capture", "config": phase, "dtype": dtype,
+              "epochs": CAPTURE_EPOCHS, **res})
+    data, make = configs["gcn"][:2]
+    sgd = make_optimizer("sgd", 2e-3, weight_decay=5e-4,
+                         total_steps=CAPTURE_EPOCHS, warmup_steps=1,
+                         momentum=0.9)
+    res = _captured_vs_eager(data, make, sgd, "float32", CAPTURE_EPOCHS,
+                             check=_sgd_schedule)
+    emit({"phase": "capture", "config": "gcn_sgd", "dtype": "float32",
+          "epochs": CAPTURE_EPOCHS, **res})
+    emit({"phase": "capture", "seconds": time.perf_counter() - t0})
+
+
 def _drive(phase, argv, expect):
     """Run the CLI with the launch counts set to 0 just before and read
     just after; ``expect`` maps each kernel to its launches per epoch and
@@ -1339,6 +1603,10 @@ def main() -> None:
     # the three-pass attend and its stage profiler: the only paths that
     # reach K8-K10 (no CLI run does)
     runs = [phase_three_pass(cora_hg), phase_profile_attend()]
+    cora_h16 = load_cora(seed=0, layout="auto", layout_objective="attention",
+                         device=DEVICE, model="gat", tile_dtype=torch.bfloat16)
+    phase_capture(cli_configs(cora, cora_h, cora_h16, cora_g, pubmed))
+    del cora_h16
     runs += [
         _drive("gcn", ["--model", "gcn", "--epochs", str(GCN_EPOCHS),
                        "--device", DEVICE, "--quiet"], {"K1": (4, 2)}),

@@ -114,6 +114,13 @@ class BCSRGraph:
         named = (self.tiles != 0).view(-1, 2, ROW_BLOCK // 2, COL_BLOCK)
         return _pack_bits(named.any(dim=2))
 
+    def warm(self) -> "BCSRGraph":
+        """Build the caches built at first use (``slot_edges``,
+        ``row_masks``, ``col_masks``), so that a later use does not sync
+        with the host."""
+        self.slot_edges, self.row_masks, self.col_masks
+        return self
+
     def to(self, device) -> "BCSRGraph":
         return _tensors_to(self, device)
 
@@ -262,6 +269,20 @@ class HybridGraph:
         first use (a host sync) and kept with the graph."""
         counts = self.rem.row_ptr[1:] - self.rem.row_ptr[:-1]
         return torch.nonzero(counts > LONG_ROW_EDGES).flatten().int()
+
+    def warm(self) -> "HybridGraph":
+        """Build every cache of the graph and of its parts that is built at
+        first use with a host sync (the tiles' ``slot_edges`` and masks,
+        ``row_edges``, ``long_rows``, ``rem_long_rows``, the remainders'
+        ``long_rows``): a CUDA graph's capture cannot sync, so the
+        captured epoch block calls this before it captures, whichever
+        paths its warm-up epoch takes."""
+        self.bcsr.warm()
+        self.bcsr_t.warm()
+        self.rem.warm()
+        self.rem_t.warm()
+        self.row_edges, self.long_rows, self.rem_long_rows
+        return self
 
     def to(self, device) -> "HybridGraph":
         return _tensors_to(self, device)

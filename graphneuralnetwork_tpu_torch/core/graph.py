@@ -97,6 +97,13 @@ class Graph:
         deg = self.row_ptr[1:] - self.row_ptr[:-1]
         return torch.nonzero(deg > self.long_edges).flatten().int()
 
+    def warm(self) -> "Graph":
+        """Build every cache that is built at first use (``long_rows``), so
+        that a later use does not sync with the host (a CUDA graph's
+        capture cannot)."""
+        self.long_rows
+        return self
+
     def with_weights(self, w: torch.Tensor) -> "Graph":
         return dataclasses.replace(self, edge_weight=w)
 

@@ -18,14 +18,16 @@ import torch
 from torch import nn
 
 from .metrics import accuracy, masked_softmax_cross_entropy
-from .schedule import OptimizerSpec
+from .schedule import OptimizerSpec, WarmupPolyTable
 
 
 @dataclass
 class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
-    scheduler: Optional[torch.optim.lr_scheduler.LRScheduler]
+    #: ``LambdaLR`` on the CPU, ``WarmupPolyTable`` on CUDA (``schedule.py``)
+    scheduler: Optional[torch.optim.lr_scheduler.LRScheduler
+                        | WarmupPolyTable]
     generator: torch.Generator       # dropout draws, on the data's device
 
 

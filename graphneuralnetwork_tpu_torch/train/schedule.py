@@ -11,6 +11,12 @@ Port of ``graphneuralnetwork_tpu/train/schedule.py``:
     schedule. Step ``t`` (from 0) uses the factor of ``t``, as optax's
     count does, because ``LambdaLR`` sets factor(0) when it is built and
     the loop calls ``scheduler.step()`` after each optimizer step.
+
+On CUDA parameters both take a form that a CUDA graph can capture, with no
+host work in a step: ``AdamW(capturable=True)``, and for SGD under the
+schedule ``ScheduledSGD`` with ``WarmupPolyTable``, whose step count and
+factors (``warmup_poly_factor`` at every step, float32) live on the
+device; the update reads ``lr · factors[count]`` there.
 """
 
 from __future__ import annotations
@@ -42,6 +48,88 @@ def warmup_poly_factor(step: int, total_steps: int, warmup_steps: int = 0,
     return float(max(frac, f32(0.0)) ** f32(power))
 
 
+def warmup_poly_table(total_steps: int, warmup_steps: int = 0,
+                      device: str | torch.device = "cpu") -> torch.Tensor:
+    """float32 ``warmup_poly_factor(t)`` for t = 0 ... max(total_steps,
+    warmup_steps); every later step's factor is 0, the last entry's."""
+    n = max(total_steps, warmup_steps, 0) + 1
+    return torch.tensor([warmup_poly_factor(t, total_steps, warmup_steps)
+                         for t in range(n)], dtype=torch.float32,
+                        device=device)
+
+
+class WarmupPolyTable:
+    """The warmup-poly schedule as a step count and a table on the device,
+    the capturable counterpart of ``LambdaLR(warmup_poly_factor)``:
+    ``factor()`` is the current step's factor on the device and
+    ``step()`` advances the count, neither with a host read. The count and
+    the table are its state (``state_dict``), which checkpoints save."""
+
+    def __init__(self, total_steps: int, warmup_steps: int,
+                 device: str | torch.device):
+        self.factors = warmup_poly_table(total_steps, warmup_steps, device)
+        self.count = torch.zeros(1, dtype=torch.int64, device=device)
+
+    def factor(self) -> torch.Tensor:
+        """float32 [1]: the factor of step ``count`` (an index kernel, no
+        host read)."""
+        return self.factors.index_select(
+            0, self.count.clamp(max=len(self.factors) - 1))
+
+    def step(self) -> None:
+        self.count += 1
+
+    def state_dict(self) -> dict:
+        return {"count": self.count.clone(), "factors": self.factors.clone()}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Copies the count in place (a captured step reads it there) and
+        takes the saved table."""
+        self.count.copy_(state["count"])
+        self.factors = state["factors"].to(self.factors.device)
+
+
+class ScheduledSGD(torch.optim.SGD):
+    """``torch.optim.SGD`` (momentum, weight decay added to the gradient
+    first) at the learning rate ``lr · schedule.factor()``, a tensor on the
+    device: the update takes a tensor learning rate without a host read,
+    so a CUDA graph can capture the step. ``param_groups`` keep the base
+    ``lr`` as a float. Each operation is ``torch.optim.SGD``'s own on one
+    tensor (``param.addcmul_(grad, lr, value=-1)``, its update for a
+    tensor ``lr``), so on the CPU the two agree bit for bit."""
+
+    def __init__(self, params, lr: float, momentum: float,
+                 weight_decay: float, schedule: WarmupPolyTable):
+        super().__init__(params, lr=lr, momentum=momentum,
+                         weight_decay=weight_decay)
+        self.schedule = schedule
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("ScheduledSGD.step takes no closure")
+        factor = self.schedule.factor()
+        for group in self.param_groups:
+            # in float64, as torch.optim.SGD forms lr from a Python
+            # float; the update rounds it to float32 once, as SGD does
+            lr = factor.double().squeeze(0) * group["lr"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                grad = p.grad
+                if group["weight_decay"]:
+                    grad = grad.add(p, alpha=group["weight_decay"])
+                if group["momentum"]:
+                    state = self.state[p]
+                    if "momentum_buffer" not in state:   # the first step
+                        state["momentum_buffer"] = grad.clone()
+                    else:
+                        state["momentum_buffer"].mul_(
+                            group["momentum"]).add_(grad)
+                    grad = state["momentum_buffer"]
+                p.addcmul_(grad, lr, value=-1)
+
+
 @dataclass(frozen=True)
 class OptimizerSpec:
     """An optimizer recipe; ``build`` binds it to parameters."""
@@ -55,11 +143,21 @@ class OptimizerSpec:
 
     def build(self, params: Iterable[torch.nn.Parameter]) -> tuple[
             torch.optim.Optimizer,
-            Optional[torch.optim.lr_scheduler.LRScheduler]]:
+            Optional[torch.optim.lr_scheduler.LRScheduler
+                     | WarmupPolyTable]]:
+        """The optimizer and its schedule (None for a constant lr), in
+        their capturable forms where the parameters lie on CUDA."""
+        params = list(params)
+        cuda = params[0].device.type == "cuda"
         if self.name == "adamw":
             return torch.optim.AdamW(
                 params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
-                weight_decay=self.weight_decay), None
+                weight_decay=self.weight_decay, capturable=cuda), None
+        if cuda and self.total_steps > 0:
+            sched = WarmupPolyTable(self.total_steps, self.warmup_steps,
+                                    params[0].device)
+            return ScheduledSGD(params, self.lr, self.momentum,
+                                self.weight_decay, sched), sched
         opt = torch.optim.SGD(params, lr=self.lr, momentum=self.momentum,
                               weight_decay=self.weight_decay)
         if self.total_steps <= 0:

@@ -9,12 +9,17 @@ the repository root:
 
 Trains the CLI's model on its data (GCN and GAT: Cora, on the COO layout
 or the CLI's hybrid: sym-normalised tiles for GCN, unit weights for GAT;
-GraphSAGE: the Pubmed hybrid) for ``WARMUP`` epochs, then
-times ``EPOCHS`` more with CUDA synchronisation (no profiler), then
-traces the same number under ``torch.profiler``. Prints one JSON line:
-wall ms per epoch (untraced and traced), device kernel ms per epoch, the
-device's busy share (kernel time over untraced wall time), kernel launches
-per epoch, and the kernels that take the most device time.
+GraphSAGE: the Pubmed hybrid) and measures two kinds of epoch block on the
+same state, in one run: the eager block (``run_epochs``: every kernel
+launched from the host) after ``WARMUP`` epochs, and then the captured
+block that the CLI trains in (``make_scanned_node_classification_run``:
+one epoch captured as a CUDA graph and replayed), after its first block
+(warm-up epoch, capture, replays). For each, a block of ``EPOCHS`` epochs
+is timed with CUDA synchronisation (no profiler), then another is traced
+under ``torch.profiler``. Prints one JSON line: per block kind, wall ms per
+epoch (untraced and traced), device kernel ms per epoch, the device's busy
+share (kernel time over untraced wall time), kernel launches per epoch,
+and the kernels that take the most device time.
 Needs a CUDA device.
 """
 
@@ -33,10 +38,49 @@ from graphneuralnetwork_tpu_torch.data import load_cora, load_pubmed_fullbatch
 from graphneuralnetwork_tpu_torch.nn import GAT, GCN, GraphSAGE
 from graphneuralnetwork_tpu_torch.train.loop import (create_train_state,
                                                      make_eval_fn)
-from graphneuralnetwork_tpu_torch.train.scan_loop import run_epochs
+from graphneuralnetwork_tpu_torch.train.scan_loop import (
+    make_scanned_node_classification_run, run_epochs)
 from graphneuralnetwork_tpu_torch.train.schedule import make_optimizer
 
 WARMUP, EPOCHS, TOP = 20, 50, 8
+
+
+def _measure(block) -> dict:
+    """One block of ``EPOCHS`` epochs timed, then one traced."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    block()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / EPOCHS
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        block()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / EPOCHS
+    # device-side events, without user annotations such as the
+    # optimizer's "Optimizer.step#AdamW.step" range
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("Optimizer.")]
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us()
+    device_ms = sum(by_name.values()) / 1e3 / EPOCHS
+    return {
+        "wall_ms_per_epoch": wall_ms,
+        "traced_wall_ms_per_epoch": traced_ms,
+        "device_ms_per_epoch": device_ms if kernels else None,
+        # against the untraced wall time: tracing slows the host only
+        "device_busy_share": device_ms / wall_ms if kernels else None,
+        "launches_per_epoch": len(kernels) / EPOCHS,
+        "top_kernels_ms_per_epoch": {
+            name[:80]: us / 1e3 / EPOCHS
+            for name, us in by_name.most_common(TOP)},
+    }
 
 
 def main(argv=None) -> dict:
@@ -75,30 +119,10 @@ def main(argv=None) -> dict:
     state = create_train_state(model, data, 0, opt)
     evaluate = make_eval_fn(model)
     run_epochs(state, data, evaluate, WARMUP)
-    torch.cuda.synchronize()
-
-    t0 = time.perf_counter()
-    run_epochs(state, data, evaluate, EPOCHS)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / EPOCHS
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        run_epochs(state, data, evaluate, EPOCHS)
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3 / EPOCHS
-    # device-side events, without user annotations such as the
-    # optimizer's "Optimizer.step#AdamW.step" range
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and not e.name.startswith("Optimizer.")]
-    by_name = collections.Counter()
-    for e in kernels:
-        by_name[e.name] += e.time_range.elapsed_us()
-    device_ms = sum(by_name.values()) / 1e3 / EPOCHS
+    eager = _measure(lambda: run_epochs(state, data, evaluate, EPOCHS))
+    run = make_scanned_node_classification_run(model, EPOCHS)
+    run(state, data)
+    captured = _measure(lambda: run(state, data))
     result = {
         "model": args.model, "dtype": args.dtype, "layout": args.layout,
         "aggregator": args.aggregator if args.model == "graphsage" else None,
@@ -107,15 +131,8 @@ def main(argv=None) -> dict:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60, check=True).stdout.strip().splitlines()[0],
-        "wall_ms_per_epoch": wall_ms,
-        "traced_wall_ms_per_epoch": traced_ms,
-        "device_ms_per_epoch": device_ms if kernels else None,
-        # against the untraced wall time: tracing slows the host only
-        "device_busy_share": device_ms / wall_ms if kernels else None,
-        "launches_per_epoch": len(kernels) / EPOCHS,
-        "top_kernels_ms_per_epoch": {
-            name[:80]: us / 1e3 / EPOCHS
-            for name, us in by_name.most_common(TOP)},
+        "eager": eager,
+        "captured": captured,
     }
     print(json.dumps(result))
     return result
