@@ -72,12 +72,30 @@ Phases, each printing one JSON line:
  12. graphsage_hybrid(_max) — ``--model graphsage --layout hybrid``, 100
                epochs with the mean aggregator (K3 and K1, no K7 or K2),
                then with ``--set aggregator=max`` (K7 and K2, no K3 or K1).
-Every CLI run trains in the captured block (a warm-up epoch, one capture,
-replays; the launch counts add a replay's captured launches) and must
-reach test_acc >= 0.80 with exact launch counts.
+Every CLI run of 8-12 trains in the captured block (a warm-up epoch, one
+capture, replays; the launch counts add a replay's captured launches) and
+must reach test_acc >= 0.80 with exact launch counts.
+ 13. row_sum — the read-bandwidth probe, the port of ``tools/bench_dma.py``:
+               its entry point (``tools/bench_dma.py`` of the port) at the
+               1 GiB shape with exact launch counts, every variant's ms,
+               GB/s and share of ``PEAK_BYTES_PER_S``; both kernels (the
+               ring at 2, 4 and 8 slots) at that shape and a small one
+               against the float64 sum and the plain version (normal
+               data within the float32 summation bound, integer data
+               exactly), each call under a time limit; ``torch.sum``
+               timed as the library call;
+ 14. sage_sampled — the sampled GraphSAGE pipeline (no kernel):
+               ``SampledGraphSAGE`` at full width card vs CPU; ``--model
+               graphsage`` (test_acc >= 0.80), with ``--set
+               device_sampling=true`` (>= 0.80) and ``--model
+               graphsage_unsup`` (binary_acc >= 0.75), no kernel launched;
+               epochs/s, then each run instrumented: wall ms per training
+               step split into host sampling, copy, host call and device
+               time.
 Then a ``previous_design`` line (every K2-K10 case beside its previous
 design's time where ``PREVIOUS_DESIGN_MS`` records one, not measured
-here), a ``kernels`` summary line (with the launch floor) and, last,
+here), a ``kernels`` summary line (K1-K10 and the two row-sum kernels,
+with the launch floor) and, last,
 ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without the last line.
 """
@@ -85,6 +103,7 @@ Any failure raises and exits non-zero without the last line.
 from __future__ import annotations
 
 import dataclasses
+import faulthandler
 import json
 import subprocess
 import sys
@@ -97,8 +116,10 @@ from graphneuralnetwork_tpu_torch.cli import main as cli_main
 from graphneuralnetwork_tpu_torch.core.bcsr import (COL_BLOCK, ROW_BLOCK,
                                                     build_hybrid)
 from graphneuralnetwork_tpu_torch.core.graph import build_graph
-from graphneuralnetwork_tpu_torch.data import load_cora, load_pubmed_fullbatch
+from graphneuralnetwork_tpu_torch.data import (load_cora, load_pubmed,
+                                               load_pubmed_fullbatch)
 from graphneuralnetwork_tpu_torch.nn import GAT, GCN, GraphSAGE
+from graphneuralnetwork_tpu_torch.nn.sage import SampledGraphSAGE
 from graphneuralnetwork_tpu_torch.nn import conv as nn_conv
 from graphneuralnetwork_tpu_torch.nn import models as nn_models
 from graphneuralnetwork_tpu_torch.ops import bcsr_attention
@@ -109,14 +130,18 @@ from graphneuralnetwork_tpu_torch.ops.cuda import bcsr_spmm_kernel as k3
 from graphneuralnetwork_tpu_torch.ops.cuda import build
 from graphneuralnetwork_tpu_torch.ops.cuda import neighbor_max_kernel as k7
 from graphneuralnetwork_tpu_torch.ops.cuda import rem_attend_kernel as k8
+from graphneuralnetwork_tpu_torch.ops.cuda import row_sum_kernel as k_rs
 from graphneuralnetwork_tpu_torch.ops.cuda import segment_max_kernel as k2
 from graphneuralnetwork_tpu_torch.ops.cuda import spmm_kernel as k1
 from graphneuralnetwork_tpu_torch.ops.cuda import tile_walk
 from graphneuralnetwork_tpu_torch.ops.cuda.counters import (COUNTERS,
                                                             read_launches,
                                                             reset_launches)
-from graphneuralnetwork_tpu_torch.tools import profile_attend
+from graphneuralnetwork_tpu_torch.sampling import (csr_from_edges,
+                                                   multihop_sampling)
+from graphneuralnetwork_tpu_torch.tools import bench_dma, profile_attend
 from graphneuralnetwork_tpu_torch.tools.timing import time_ms
+from graphneuralnetwork_tpu_torch.train import sage_loop
 from graphneuralnetwork_tpu_torch.train.loop import (create_train_state,
                                                      make_eval_fn)
 from graphneuralnetwork_tpu_torch.train.metrics import (
@@ -1459,6 +1484,373 @@ def _cora_gat_train(c):
             and c["dropout"] and c.get("shift", "exact") == "exact")
 
 
+#: The row-sum probe (``tools/bench_dma.py``'s kernels): its small shape
+#: beside the tool's 1 GiB one, and the longest one kernel call with its
+#: synchronisation may take before the run dumps its stacks and exits 1 (a
+#: hung TMA ring waits forever rather than failing).
+ROW_SUM_SMALL = (4096, 128)
+ROW_SUM_CALL_LIMIT = 120.0
+#: Calls of each variant in one run of the tool: its check, then
+#: ``time_ms``'s 3 warm-up calls and 7 batches of 20.
+ROW_SUM_TOOL_CALLS = 1 + 3 + 7 * 20
+
+
+def _limited(fn, what: str):
+    """``fn()`` and a synchronisation, under ``ROW_SUM_CALL_LIMIT``."""
+    faulthandler.dump_traceback_later(ROW_SUM_CALL_LIMIT, exit=True)
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    return out
+
+
+def _row_sum_calls():
+    """name -> (kernel wrapper call, kernel kind, slots)."""
+    calls = {"row_sum_stream": (k_rs.row_sum_stream, "stream", 2)}
+    for n in k_rs.SLOTS:
+        calls[f"row_sum_ring_x{n}"] = (
+            lambda x, n=n: k_rs.row_sum_ring(x, n), "ring", n)
+    return calls
+
+
+def phase_row_sum() -> tuple[dict, dict]:
+    """The read-bandwidth probe. First its main path, the tool's entry
+    point (``python -m graphneuralnetwork_tpu_torch.tools.bench_dma``) at
+    its 1 GiB shape, with the launch counts set to 0 just before and read
+    just after: each of its variants checked once against the float64 sum
+    and timed (ms, GB/s, share of ``PEAK_BYTES_PER_S``; exact launches).
+    Then both kernels, the ring at 2, 4 and 8 slots, on the 1 GiB shape and
+    on ``ROW_SUM_SMALL``: normal data within the float32 summation bound of
+    the float64 sum (γ(chain)·Σ|x|, ``row_sum_kernel.sum_tolerance``, the
+    chain from each kernel's launch) and of the plain version (the two
+    bounds added, the plain version's chain taken as the row count: its
+    order is PyTorch's), and integer data in [-4, 4] (every partial sum
+    exact in float32) equal to the float64 sum and to the plain version
+    bit for bit; then one ``torch.sum(x, 0)`` timed as the library call.
+    Each kernel call runs under ``ROW_SUM_CALL_LIMIT``."""
+    t0 = time.perf_counter()
+    reset_launches()
+    faulthandler.dump_traceback_later(ROW_SUM_CALL_LIMIT, exit=True)
+    try:
+        tool = bench_dma.main(["--device", DEVICE])
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    launches = read_launches()
+    want = {**dict.fromkeys(COUNTERS, 0),
+            "row_sum_stream": ROW_SUM_TOOL_CALLS,
+            "row_sum_ring": len(k_rs.SLOTS) * ROW_SUM_TOOL_CALLS}
+    if launches != want:
+        raise AssertionError(f"bench_dma: launches {launches}, expected "
+                             f"{want}")
+    emit({"phase": "row_sum", "run": "tools.bench_dma", **tool,
+          "launches": {k: launches[k] for k in ("row_sum_stream",
+                                                "row_sum_ring")}})
+    sms = tile_walk.sm_count(0)
+    checks = {name: [] for name in _row_sum_calls()}
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    for m, f in ((bench_dma.ROWS, bench_dma.WIDTH), ROW_SUM_SMALL):
+        x = torch.randn(m, f, device=DEVICE, generator=gen)
+        xi = torch.randint(-4, 5, (m, f), device=DEVICE,
+                           generator=gen).float()
+        ref = x.sum(0, dtype=torch.float64)
+        ref_i = xi.sum(0, dtype=torch.float64)
+        abs_sum = x.abs().sum(0, dtype=torch.float64)
+        plain = k_rs.row_sum_plain(x)[0].double()
+        plain_i = k_rs.row_sum_plain(xi)
+        if not bool((plain_i.double() == ref_i).all()):
+            raise AssertionError(f"row_sum_plain at {m}x{f}: integer data "
+                                 "differ from the exact sum")
+        plain_tol = k_rs.sum_tolerance(m, abs_sum)
+        for name, (call, kind, slots) in _row_sum_calls().items():
+            chain = k_rs.chain_length(kind, m, f, sms, slots)
+            tol = k_rs.sum_tolerance(chain, abs_sum)
+            out = _limited(lambda: call(x), name)
+            err = bench_dma.check(name, out, ref, tol)
+            vs_plain = (out[0].double() - plain).abs()
+            if not bool((vs_plain <= tol + plain_tol).all()):
+                raise AssertionError(f"{name} at {m}x{f}: off the plain "
+                                     f"version by {float(vs_plain.max())}")
+            exact = _limited(lambda: call(xi), name)
+            if not (bool((exact.double() == ref_i).all())
+                    and torch.equal(exact, plain_i)):
+                raise AssertionError(f"{name} at {m}x{f}: integer data "
+                                     "differ from the exact sum")
+            checks[name].append({"shape": [m, f], "chain": chain,
+                                 "max_abs_err": err,
+                                 "tolerance_min": float(tol.min()),
+                                 "vs_plain_max_abs_err": float(
+                                     vs_plain.max()),
+                                 "integer_exact": True})
+        if (m, f) == (bench_dma.ROWS, bench_dma.WIDTH):
+            library_ms = time_ms(lambda: torch.sum(x, 0))
+        del x, xi, out, exact
+    torch.cuda.empty_cache()
+    emit({"phase": "row_sum", "checks": checks, "library_ms": library_ms,
+          "call_limit_s": ROW_SUM_CALL_LIMIT,
+          "seconds": time.perf_counter() - t0})
+    return {"tool": tool, "checks": checks, "library_ms": library_ms}, \
+        launches
+
+
+def row_sum_rows(res: dict, launches: dict) -> list[dict]:
+    """The ``kernels`` line's rows of the two row-sum kernels: the tool's
+    times (the ring's timed case at 2 slots, every slot count in
+    ``cases``), its bound, plain and library times, and the largest error
+    of this run's checks against the plain version and against the
+    float64 sum."""
+    tool, var = res["tool"], res["tool"]["variants"]
+    rows = []
+    for name, replaces, timed, names in (
+            ("row_sum_stream", "tools/bench_dma.py:31", "stream",
+             ["stream"]),
+            ("row_sum_ring", "tools/bench_dma.py:50", "ring_x2",
+             [f"ring_x{n}" for n in k_rs.SLOTS])):
+        mine = [c for key, cs in res["checks"].items()
+                if key.startswith(name) for c in cs]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "graphneuralnetwork_tpu_torch/csrc/row_sum_kernel.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(c["vs_plain_max_abs_err"] for c in mine),
+            "max_abs_err_vs_float64": max(c["max_abs_err"] for c in mine),
+            "ms": var[timed]["ms"],
+            "plain_ms": var["plain"]["ms"], "bound_ms": tool["bound_ms"],
+            "bound_by": "bytes", "library_ms": res["library_ms"],
+            "timed_case": f"float32 [{tool['rows']}, {tool['width']}]"
+                          + (", 2 slots" if timed != "stream" else ""),
+            "cases": [{"case": v, "ms": var[v]["ms"],
+                       "gb_per_s": var[v]["gb_per_s"],
+                       "peak_share": var[v]["peak_share"]} for v in names],
+        })
+    return rows
+
+
+#: The sampled GraphSAGE pipeline's CLI runs: argv, the criterion's key
+#: and its REPRO.md bound.
+SAGE_RUNS = {
+    "graphsage_sampled": (["--model", "graphsage"], "test_acc", 0.80),
+    "graphsage_device_sampling": (
+        ["--model", "graphsage", "--set", "device_sampling=true"],
+        "test_acc", 0.80),
+    "graphsage_unsup": (["--model", "graphsage_unsup"], "binary_acc", 0.75),
+}
+
+
+class _SageTimes:
+    """Wall and device time of a sampled GraphSAGE run, by part: the host
+    samplers (walks, negatives, hops), the hop ids' copy to the card (a
+    synchronisation first, its wait kept apart), each training step's and
+    evaluation batch's host call (gather, forward, backward, update
+    launched) and the span of its work on the card (CUDA events around
+    the call, which include the card's idle gaps while the host launches),
+    and the device sampler's span. Sampling and copies are charged to the
+    step or evaluation batch that follows them. ``report`` adds the device
+    time of one step and one evaluation batch (and one device draw of
+    hops): the last one's call replayed back to back behind a sleep
+    kernel (``time_ms``, one call a batch), so no host gap counts."""
+
+    def __init__(self):
+        self.pending = {"sampling": 0.0, "wait": 0.0, "copy": 0.0}
+        self.parts = {kind: {"batches": 0, "sampling": 0.0, "wait": 0.0,
+                             "copy": 0.0, "host_call": 0.0, "wall": 0.0,
+                             "events": [], "device_sampling": []}
+                      for kind in ("train", "eval")}
+        self.last = None
+        self.dev_sampling = []
+        self.calls = {}
+
+    def sampler(self, fn):
+        def timed(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            self.pending["sampling"] += time.perf_counter() - t
+            return out
+        return timed
+
+    def device_sampler(self, fn):
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.dev_sampling.append((start, end))
+            self.calls["device_sampling"] = (fn, args, kw)
+            return out
+        return timed
+
+    def copy(self, fn):
+        def timed(*args, **kw):
+            t = time.perf_counter()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.pending["wait"] += t1 - t
+            self.pending["copy"] += time.perf_counter() - t1
+            return out
+        return timed
+
+    def step(self, fn, kind):
+        def timed(*args, **kw):
+            t = time.perf_counter()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            done = time.perf_counter()
+            part = self.parts[kind]
+            part["batches"] += 1
+            part["host_call"] += done - t
+            # from the end of the batch before (the first: its own parts)
+            part["wall"] += (done - self.last if self.last is not None
+                             else done - t + sum(self.pending.values()))
+            part["events"].append((start, end))
+            part["device_sampling"] += self.dev_sampling
+            self.dev_sampling = []
+            for k, v in self.pending.items():
+                part[k] += v
+                self.pending[k] = 0.0
+            self.last = done
+            self.calls[kind] = (fn, args, kw)
+            return out
+        return timed
+
+    def report(self) -> dict:
+        """ms per batch of each part (0 for a part without batches)."""
+        torch.cuda.synchronize()
+        replay = {name: time_ms(lambda c=c: c[0](*c[1], **c[2]), reps=5,
+                                batch=1)
+                  for name, c in self.calls.items()}
+        out = {}
+        for kind, part in self.parts.items():
+            n = max(part["batches"], 1)
+            out[kind] = {
+                "batches": part["batches"],
+                "wall_ms": part["wall"] * 1e3 / n,
+                "host_sampling_ms": part["sampling"] * 1e3 / n,
+                "wait_ms": part["wait"] * 1e3 / n,
+                "copy_ms": part["copy"] * 1e3 / n,
+                "host_call_ms": part["host_call"] * 1e3 / n,
+                "device_span_ms": sum(s.elapsed_time(e)
+                                      for s, e in part["events"]) / n,
+                "device_ms": replay.get(kind),
+                "device_sampling_span_ms": sum(
+                    s.elapsed_time(e)
+                    for s, e in part["device_sampling"]) / n}
+        out["device_sampling_ms"] = replay.get("device_sampling")
+        return out
+
+
+def _sage_split(argv) -> dict:
+    """One instrumented CLI run: the ms of each part per training step and
+    per evaluation batch (``_SageTimes``)."""
+    from graphneuralnetwork_tpu_torch.sampling import device_neighbor
+
+    times = _SageTimes()
+    patches = [
+        (sage_loop, "multihop_sampling",
+         times.sampler(sage_loop.multihop_sampling)),
+        (sage_loop, "uniform_walks", times.sampler(sage_loop.uniform_walks)),
+        (sage_loop.NegativeSampler, "draw",
+         times.sampler(sage_loop.NegativeSampler.draw)),
+        (sage_loop, "_hops_to_device", times.copy(sage_loop._hops_to_device)),
+        (sage_loop, "_supervised_step",
+         times.step(sage_loop._supervised_step, "train")),
+        (sage_loop, "_unsupervised_step",
+         times.step(sage_loop._unsupervised_step, "train")),
+        (sage_loop, "_infer", times.step(sage_loop._infer, "eval")),
+        (device_neighbor, "device_multihop_sampling",
+         times.device_sampler(device_neighbor.device_multihop_sampling)),
+    ]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    try:
+        for obj, name, value in patches:
+            setattr(obj, name, value)
+        res = cli_main(argv)
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+    return {"epochs_per_s": res["epochs_per_s"], **times.report()}
+
+
+def phase_sage_sampled() -> dict:
+    """The sampled GraphSAGE pipeline (no kernel, as in JAX). First
+    ``SampledGraphSAGE`` at full width (the Pubmed synthetic's 500
+    features, hidden 128, 3 classes, fanouts 10,10, a batch of 64) on the
+    card against the same model on the CPU, on the same hops, for each
+    aggregator: logits and gradients within ``PATH_TOL``. Then the CLI's
+    three runs (``SAGE_RUNS``) with the launch counts set to 0 before each
+    and read after: no kernel may launch, and each must reach its
+    REPRO.md criterion; epochs/s. Then each run once more, instrumented:
+    wall ms per training step (and evaluation batch) split into host
+    sampling, the wait for the card and the copy of the hop ids, the
+    step's host call, the span of its work on the card and its device time
+    (``_SageTimes``)."""
+    t0 = time.perf_counter()
+    data = load_pubmed(seed=0)
+    indptr, indices, _ = csr_from_edges(data.senders, data.receivers,
+                                        data.features.shape[0])
+    hops = multihop_sampling(data.train_idx[:64], (10, 10), indptr, indices,
+                             np.random.default_rng(0))
+    feats = torch.from_numpy(data.features)
+    labels = torch.from_numpy(data.labels.astype(np.int64))[hops[0]]
+    path = {}
+    for agg in ("mean", "sum", "max"):
+        outs = []
+        ref = SampledGraphSAGE(feats.shape[1], (128, data.num_classes),
+                               (10, 10), aggregator=agg)
+        ref.reset_parameters(torch.Generator().manual_seed(1))
+        dev = SampledGraphSAGE(feats.shape[1], (128, data.num_classes),
+                               (10, 10), aggregator=agg)
+        dev.load_state_dict(ref.state_dict())
+        dev.to(DEVICE)
+        for model, device in ((ref, "cpu"), (dev, DEVICE)):
+            f, y = feats.to(device), labels.to(device)
+            logits = model([f[torch.from_numpy(h).long().to(device)]
+                            for h in hops])
+            masked_softmax_cross_entropy(logits, y).backward()
+            outs.append((logits.detach().cpu(),
+                         {k: p.grad.cpu()
+                          for k, p in model.named_parameters()}))
+        (lr, gr), (ld, gd) = outs
+        if not torch.isfinite(ld).all() or ld.shape != (64, 3):
+            raise AssertionError(f"sage_sampled {agg}: bad logits")
+        err = _rel_err(ld, lr)
+        gerr = {k: _rel_err(gd[k], g) for k, g in gr.items()}
+        if err > PATH_TOL or max(gerr.values()) > PATH_TOL:
+            raise AssertionError(f"sage_sampled {agg}: card vs CPU logits "
+                                 f"{err}, gradients {gerr}")
+        path[agg] = {"logits_rel_err": err, "grad_rel_err": gerr}
+    emit({"phase": "sage_sampled", "model": "card vs CPU",
+          "tolerance": PATH_TOL, **path})
+    runs = {}
+    for name, (argv, key, bound_) in SAGE_RUNS.items():
+        argv = argv + ["--device", DEVICE, "--quiet"]
+        reset_launches()
+        res = cli_main(argv)
+        launches = read_launches()
+        if any(launches.values()):
+            raise AssertionError(f"{name}: kernels launched {launches}, "
+                                 "expected none")
+        if not res[key] >= bound_:
+            raise AssertionError(f"{name}: {key} {res[key]} below the "
+                                 f"REPRO criterion {bound_}")
+        runs[name] = {"argv": argv, key: res[key],
+                      "epochs": res["epochs"],
+                      "epochs_per_s": res["epochs_per_s"],
+                      "seconds": res["seconds"], "launches": 0}
+        emit({"phase": "sage_sampled", "run": name, **runs[name]})
+    for name, (argv, _, _) in SAGE_RUNS.items():
+        split = _sage_split(argv + ["--device", DEVICE, "--quiet"])
+        runs[name]["split"] = split
+        emit({"phase": "sage_sampled", "run": name, "split": split})
+    emit({"phase": "sage_sampled", "seconds": time.perf_counter() - t0})
+    return runs
+
+
 #: name, source, TPU kernel replaced, and which float32 case the summary
 #: times (GCN's first layer for K1 and for K3 on the Cora hybrid; GAT's 8
 #: heads for K2; the first GAT layer of a training step for K4-K6 and
@@ -1642,9 +2034,14 @@ def main() -> None:
     runs.append(_drive("graphsage_hybrid_max",
                        sage + ["--set", "aggregator=max"],
                        {"K7": (4, 2), "K2": (4, 2)}))
+    row_sum, row_sum_launches = phase_row_sum()
+    runs.append(row_sum_launches)
+    phase_sage_sampled()
     emit(previous_design(cases))
-    emit(summary(cases, {k: sum(run[k] for run in runs) for k in COUNTERS},
-                 floor_ms))
+    launches = {k: sum(run[k] for run in runs) for k in COUNTERS}
+    line = summary(cases, launches, floor_ms)
+    line["kernels"] += row_sum_rows(row_sum, launches)
+    emit(line)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

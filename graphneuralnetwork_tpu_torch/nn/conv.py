@@ -155,7 +155,9 @@ class GATConv(nn.Module):
 
 class SAGEConv(nn.Module):
     """GraphSAGE convolution (full-graph form): aggregate the in-neighbours
-    (``mean``, ``sum`` or ``max``), then ``neighbor(agg) + self(x)``.
+    (``mean``, ``sum`` or ``max``), then ``neighbor(agg) + self(x)``
+    (``combine="sum"``) or the two side by side, ``[self(x), neighbor(agg)]``
+    (``combine="concat"``, twice ``features`` wide).
 
     On a ``HybridGraph`` ``sum`` and ``mean`` ride ``spmm`` (K3 and K1;
     ``mean`` divides by ``spmm(graph, ones)``, at least 1) and ``max``
@@ -165,13 +167,17 @@ class SAGEConv(nn.Module):
     """
 
     def __init__(self, in_features: int, features: int,
-                 aggregator: str = "mean", use_bias: bool = False,
+                 aggregator: str = "mean", combine: str = "sum",
+                 use_bias: bool = False,
                  dtype: Optional[torch.dtype] = None,
                  activation: Optional[Callable] = None):
         super().__init__()
         if aggregator not in ("mean", "sum", "max"):
             raise ValueError(f"unknown aggregator {aggregator!r}")
+        if combine not in ("sum", "concat"):
+            raise ValueError(f"unknown combine {combine!r}")
         self.aggregator = aggregator
+        self.combine = combine
         self.dtype = dtype
         self.activation = activation
         # the flax scope names: ``sage0/neighbor/kernel`` maps to
@@ -215,8 +221,10 @@ class SAGEConv(nn.Module):
                 x: torch.Tensor) -> torch.Tensor:
         if self.dtype is not None:
             x = x.to(self.dtype)
-        out = (self._dense(self.neighbor, self._aggregate(graph, x))
-               + self._dense(self.self, x))
+        neigh = self._dense(self.neighbor, self._aggregate(graph, x))
+        self_h = self._dense(self.self, x)
+        out = (neigh + self_h if self.combine == "sum"
+               else torch.cat([self_h, neigh], dim=-1))
         if self.activation is not None:
             out = self.activation(out)
         return out

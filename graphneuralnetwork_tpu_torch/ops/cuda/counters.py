@@ -1,6 +1,8 @@
 """The launch counter of every kernel wrapper, by the TPU kernel it replaces
-(K1-K10). A wrapper adds one to its ``launches`` where it launches its
-kernel and nowhere else; the plain versions count nothing.
+(K1-K10; ``row_sum_stream`` and ``row_sum_ring`` for ``reduce_auto`` and
+``reduce_manual`` of ``tools/bench_dma.py``). A wrapper adds one to its
+``launches`` where it launches its kernel and nowhere else; the plain
+versions count nothing.
 
 A CUDA graph turns that around: its capture calls the wrappers (they count)
 but launches nothing, and its replays launch the kernels without calling a
@@ -19,13 +21,15 @@ from .attend_parts_kernel import attend_fused, tile_parts
 from .bcsr_spmm_kernel import bcsr_spmm
 from .neighbor_max_kernel import neighbor_max
 from .rem_attend_kernel import rem_attend
+from .row_sum_kernel import row_sum_ring, row_sum_stream
 from .segment_max_kernel import segment_max
 from .spmm_kernel import segment_sum
 
 COUNTERS = {"K1": segment_sum, "K2": segment_max, "K3": bcsr_spmm,
             "K4": attend_online, "K5": attend_bwd_a, "K6": attend_bwd_b,
             "K7": neighbor_max, "K8": rem_attend, "K9": tile_parts,
-            "K10": attend_fused}
+            "K10": attend_fused, "row_sum_stream": row_sum_stream,
+            "row_sum_ring": row_sum_ring}
 
 
 def reset_launches() -> None:
