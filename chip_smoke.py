@@ -33,7 +33,12 @@ Phases, each printing one JSON line:
                transpose tiles (F 128), float32 and bfloat16; K7 on the
                Pubmed hybrid (C 500 and 128), the community graph (128)
                and, at the three-pass shift's 8 heads, the Cora GAT
-               hybrid and the community graph's bfloat16 tiles;
+               hybrid and the community graph's bfloat16 tiles; and
+               at HAN's shapes (``phase_han_kernels``) K4, K5 and K6 at 4
+               heads x 8 on the PAP metapath graph of the 600-paper
+               synthetic ACM (an empty remainder) and of the 3,025-paper
+               one (a remainder of ~12,000 edges), x in float32 and in
+               bfloat16 over float32 tiles, without and with dropout;
   4. path    — GCN, GAT-COO, GAT on the hybrid Cora graph (dropout off,
                then attention dropout with the same masks on both sides),
                GCN on the Cora hybrid and GraphSAGE mean and max on the
@@ -75,7 +80,18 @@ Phases, each printing one JSON line:
 Every CLI run of 8-12 trains in the captured block (a warm-up epoch, one
 capture, replays; the launch counts add a replay's captured launches) and
 must reach test_acc >= 0.80 with exact launch counts.
- 13. row_sum — the read-bandwidth probe, the port of ``tools/bench_dma.py``:
+ 13. han     — HAN through the CLI, 100 epochs each: ``--model han`` (auto
+               -> hybrid on the 600-paper ACM, empty remainders) in
+               float32 and bfloat16, ``--set n_papers=3025`` (hybrid with
+               remainders) and ``--layout coo --set n_papers=3025`` (K1 and
+               K2), each in 20-epoch chunks of one captured epoch, and
+               ``--model han_batch`` (dense node minibatches, no kernel):
+               test_acc >= 0.80 and exact launch counts (``HAN_RUNS``);
+               each full-batch configuration's chunk timed (wall ms per
+               epoch captured and eager, device ms per epoch); HAN card vs
+               CPU (``HAN_TOL``) on the CLI's 600-paper hybrid in float32
+               and bfloat16, the 3,025-paper hybrid and its COO graphs.
+ 14. row_sum — the read-bandwidth probe, the port of ``tools/bench_dma.py``:
                its entry point (``tools/bench_dma.py`` of the port) at the
                1 GiB shape with exact launch counts, every variant's ms,
                GB/s and share of ``PEAK_BYTES_PER_S``; both kernels (the
@@ -84,7 +100,7 @@ must reach test_acc >= 0.80 with exact launch counts.
                data within the float32 summation bound, integer data
                exactly), each call under a time limit; ``torch.sum``
                timed as the library call;
- 14. sage_sampled — the sampled GraphSAGE pipeline (no kernel):
+ 15. sage_sampled — the sampled GraphSAGE pipeline (no kernel):
                ``SampledGraphSAGE`` at full width card vs CPU; ``--model
                graphsage`` (test_acc >= 0.80), with ``--set
                device_sampling=true`` (>= 0.80) and ``--model
@@ -116,9 +132,10 @@ from graphneuralnetwork_tpu_torch.cli import main as cli_main
 from graphneuralnetwork_tpu_torch.core.bcsr import (COL_BLOCK, ROW_BLOCK,
                                                     build_hybrid)
 from graphneuralnetwork_tpu_torch.core.graph import build_graph
-from graphneuralnetwork_tpu_torch.data import (load_cora, load_pubmed,
+from graphneuralnetwork_tpu_torch.data import (load_acm_han, load_cora,
+                                               load_pubmed,
                                                load_pubmed_fullbatch)
-from graphneuralnetwork_tpu_torch.nn import GAT, GCN, GraphSAGE
+from graphneuralnetwork_tpu_torch.nn import GAT, GCN, HAN, GraphSAGE
 from graphneuralnetwork_tpu_torch.nn.sage import SampledGraphSAGE
 from graphneuralnetwork_tpu_torch.nn import conv as nn_conv
 from graphneuralnetwork_tpu_torch.nn import models as nn_models
@@ -142,6 +159,8 @@ from graphneuralnetwork_tpu_torch.sampling import (csr_from_edges,
 from graphneuralnetwork_tpu_torch.tools import bench_dma, profile_attend
 from graphneuralnetwork_tpu_torch.tools.timing import time_ms
 from graphneuralnetwork_tpu_torch.train import sage_loop
+from graphneuralnetwork_tpu_torch.train.han_loop import (HANBlock,
+                                                         run_han_epochs)
 from graphneuralnetwork_tpu_torch.train.loop import (create_train_state,
                                                      make_eval_fn)
 from graphneuralnetwork_tpu_torch.train.metrics import (
@@ -613,11 +632,13 @@ def _timed_cases(calls, errs, label, hg, heads, feat, dtype, bits,
     return cases
 
 
-def _attend_case(label, hg, heads, feat, dtype, dropping, gen, plain_reps):
+def _attend_case(label, hg, heads, feat, dtype, dropping, gen, plain_reps,
+                 parts=True):
     """K4, K5 and K6 on random operands of one shape against their plain
     versions, then timed. The backward's operands follow the forward's
-    (m zeroed where den == 0, as the autograd function does). Then K8-K10
-    on the same operands, with the three-pass attend's shift."""
+    (m zeroed where den == 0, as the autograd function does). Then, with
+    ``parts``, K8-K10 on the same operands, with the three-pass attend's
+    shift. ``x`` is in ``dtype``, the tiles as ``hg`` holds them."""
     n, hf = hg.n_nodes, heads * feat
     dname = str(dtype).replace("torch.", "")
 
@@ -664,6 +685,8 @@ def _attend_case(label, hg, heads, feat, dtype, dropping, gen, plain_reps):
     }
     cases = _timed_cases(calls, errs, label, hg, heads, feat, dtype, bits,
                          plain_reps)
+    if not parts:
+        return cases
     shift = bcsr_attention.three_pass_shift(hg, fs, fd, 0.2)
     return cases + _parts_cases(label, hg, x, fs, fd, shift, bits, keep_mul,
                                 plain_reps, "exact")
@@ -856,6 +879,36 @@ def phase_attend_kernels(cora_hybrid, large) -> list[dict]:
     cases += _rem_split_cases(gen)
     emit({"phase": "kernels", "attend_seconds": time.perf_counter() - t0,
           "cases": len(cases)})
+    return cases
+
+
+def phase_han_kernels(pap, pap_large) -> list[dict]:
+    """K4, K5 and K6 at HAN's shapes: 4 heads x 8 on the PAP metapath
+    graph of the CLI's 600-paper ACM (every edge in a tile: an empty
+    remainder) and of the 3,025-paper ACM (the HAN paper's paper count; a
+    remainder of ~12,000 edges beside its tiles), x in float32 and in
+    bfloat16 over the loader's float32 tiles, without and with attention
+    dropout (the HAN layer's rate; the ``han`` CLI trains without it)."""
+    t0 = time.perf_counter()
+    if pap.rem.n_edges != 0 or pap_large.rem.n_edges < 10_000:
+        raise AssertionError(f"HAN PAP graphs: {pap.rem.n_edges} and "
+                             f"{pap_large.rem.n_edges} remainder edges")
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    cases = []
+    for label, hg in (("acm_pap", pap), ("acm3025_pap", pap_large)):
+        if hg.bcsr.tiles.dtype != torch.float32:
+            raise AssertionError(f"{label}: tiles in {hg.bcsr.tiles.dtype}")
+        for dtype in (torch.float32, torch.bfloat16):
+            for dropping in (False, True):
+                cases += _attend_case(label, hg, HAN_HEADS, HAN_HIDDEN,
+                                      dtype, dropping, gen, (3, 5),
+                                      parts=False)
+    emit({"phase": "kernels", "han_graphs": {
+        label: dict(nodes=g.n_nodes, tiles=g.bcsr.n_tiles,
+                    tiled_edges=g.bcsr.n_edges,
+                    remainder_edges=g.rem.n_edges)
+        for label, g in (("acm_pap", pap), ("acm3025_pap", pap_large))},
+        "han_seconds": time.perf_counter() - t0, "cases": len(cases)})
     return cases
 
 
@@ -1250,8 +1303,11 @@ def cli_configs(cora, cora_h, cora_h16, cora_g, pubmed) -> dict:
 
 
 def _on_cpu(data):
+    """``data`` (one graph, or HAN's metapath graphs) on the CPU."""
+    graphs = ({"graphs": [g.to("cpu") for g in data.graphs]}
+              if hasattr(data, "graphs") else {"graph": data.graph.to("cpu")})
     return dataclasses.replace(
-        data, graph=data.graph.to("cpu"), features=data.features.cpu(),
+        data, **graphs, features=data.features.cpu(),
         labels=data.labels.cpu(), train_idx=data.train_idx.cpu(),
         val_idx=data.val_idx.cpu(), test_idx=data.test_idx.cpu(),
         device=torch.device("cpu"))
@@ -1465,11 +1521,178 @@ def _drive(phase, argv, expect):
     if not np.isfinite(res["loss"]) or res["test_acc"] < 0.80:
         raise AssertionError(f"{phase}: loss {res['loss']}, test_acc "
                              f"{res['test_acc']} (REPRO criterion 0.80)")
-    emit({"phase": phase, "argv": argv, "loss": res["loss"],
-          "val_acc": res["val_acc"], "test_acc": res["test_acc"],
-          "epochs": epochs, "epochs_per_s": res["epochs_per_s"],
-          "seconds": seconds, "launches": launches})
+    emit({"phase": phase, "argv": argv, **res, "seconds": seconds,
+          "launches": launches})
     return launches
+
+
+#: HAN's widths in the CLI: 4 heads of 8 features, one layer
+HAN_HEADS, HAN_HIDDEN = 4, 8
+#: The HAN paper's ACM paper count (Wang et al., WWW 2019, Table 2)
+HAN_PAPERS_LARGE = 3025
+#: HAN card vs CPU, each against the largest entry of the logits, or of a
+#: parameter's gradients its scale group's largest gradient entry
+#: (``_scale_group``): (logits, gradients) by dtype, the tolerances of the
+#: CPU tests (``tests/test_torch_han.py``).
+HAN_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (3e-2, 3e-2)}
+#: HAN's launches (per epoch, final test forward): an epoch is one train
+#: step (forward and backward of the two metapath GAT layers), with no
+#: validation pass; COO forward per metapath: K2 (shift) + K1
+#: (denominator) + K1 (aggregation), a backward of neither
+HAN_HYBRID = {"K4": (2, 2), "K5": (2, 0), "K6": (2, 0)}
+HAN_COO = {"K1": (4, 4), "K2": (2, 2)}
+#: phase: (argv, launches, (n_papers, layout, dtype) of the timed block;
+#: None for ``han_batch``, which runs eager steps and no kernel)
+HAN_RUNS = {
+    "han": (["--model", "han"], HAN_HYBRID, (600, "auto", None)),
+    "han_bf16": (["--model", "han", "--dtype", "bfloat16"], HAN_HYBRID,
+                 (600, "auto", torch.bfloat16)),
+    "han_3025": (["--model", "han", "--set",
+                  f"n_papers={HAN_PAPERS_LARGE}"], HAN_HYBRID,
+                 (HAN_PAPERS_LARGE, "auto", None)),
+    "han_coo_3025": (["--model", "han", "--layout", "coo", "--set",
+                      f"n_papers={HAN_PAPERS_LARGE}"], HAN_COO,
+                     (HAN_PAPERS_LARGE, "coo", None)),
+    "han_batch": (["--model", "han_batch"], {}, None),
+}
+
+
+def _scale_group(name: str) -> str:
+    """The parameters whose gradients share a scale: a module's (a
+    Linear's weight and bias together), and the semantic attention's
+    projection with its ``q``: the projection bias's gradient is a sum
+    over P x N rows that cancels to ~1e-2 of its weight's."""
+    module = name.rpartition(".")[0]
+    return module[:-len("proj")].rstrip(".") if module.endswith(
+        "proj") else module
+
+
+def _module_errs(got: dict, want: dict) -> dict:
+    """Each gradient's max abs error over its scale group's largest
+    entry."""
+    scale = {}
+    for k, g in want.items():
+        group = _scale_group(k)
+        scale[group] = max(scale.get(group, 0.0), float(g.abs().max()))
+    return {k: float((got[k] - g).abs().max()) / scale[_scale_group(k)]
+            for k, g in want.items()}
+
+
+def _han_card_vs_cpu(data, dtype) -> dict:
+    """HAN at the CLI's widths, one forward and the training loss's
+    backward, dropout off (as the CLI trains): on the CPU (plain
+    versions) and with the same weights on the card (kernels)."""
+    def make():
+        return HAN(int(data.features.shape[1]), len(data.graphs),
+                   data.num_classes, hidden=HAN_HIDDEN,
+                   num_heads=(HAN_HEADS,), dtype=dtype)
+
+    ref, dev = make(), make()
+    ref.reset_parameters(torch.Generator().manual_seed(1))
+    dev.load_state_dict(ref.state_dict())
+    dev.to(DEVICE)
+    outs = []
+    for model, d in ((ref, _on_cpu(data)), (dev, data)):
+        model.eval()
+        logits = model(d.graphs, d.features)
+        masked_softmax_cross_entropy(logits[d.train_idx],
+                                     d.labels[d.train_idx]).backward()
+        outs.append((logits.detach().cpu(), {
+            k: p.grad.cpu() for k, p in model.named_parameters()}))
+    (lr, gr), (ld, gd) = outs
+    if not torch.isfinite(ld).all() or ld.shape != lr.shape:
+        raise AssertionError("HAN: bad logits on the card")
+    err = float((ld - lr).abs().max()) / float(lr.abs().max())
+    gerr = _module_errs(gd, gr)
+    tol = HAN_TOL["float32" if dtype is None else "bfloat16"]
+    if err > tol[0] or max(gerr.values()) > tol[1]:
+        raise AssertionError(f"HAN card vs CPU: logits {err}, gradients "
+                             f"{gerr} (tolerance {tol})")
+    return dict(logits_rel_err=err, grad_rel_err=gerr, tolerance=tol)
+
+
+def _han_chunk(n_papers, layout, dtype) -> dict:
+    """The ``han`` CLI's chunk of 20 epochs on fresh states from one seed:
+    captured (``HANBlock``) against eager epochs on the card
+    (``run_han_epochs``), each epoch's loss within ``TOL[dtype]``, and in
+    float32 its first ``CPU_EPOCHS`` against the CPU's eager epochs within
+    ``PATH_TOL``. Then the times: wall ms per epoch of the first chunk
+    (warm-up, capture, replays), of a captured chunk (20 replays and one
+    host read) and of 20 eager epochs; device ms per epoch (one replay,
+    with the reset of the chunk's loss index, back to back behind a sleep
+    kernel: ``time_ms``)."""
+    data = load_acm_han(seed=0, layout=layout, n_papers=n_papers,
+                        device=DEVICE)
+    opt = make_optimizer("adamw", 5e-3)
+
+    def state(d):
+        return create_train_state(
+            HAN(int(d.features.shape[1]), len(d.graphs), d.num_classes,
+                hidden=HAN_HIDDEN, num_heads=(HAN_HEADS,), dtype=dtype),
+            d, 0, opt)
+
+    block, eager = HANBlock(state(data), data, 20), state(data)
+    rows, first_ms = _timed(block.run)
+    ref = run_han_epochs(eager, data, 20)
+    dname = "float32" if dtype is None else "bfloat16"
+    if rows.shape != (20, 1) or not np.isfinite(rows).all():
+        raise AssertionError(f"HAN captured losses {rows}")
+    err = _rows_err(rows, ref, TOL[dname])
+    if err > 1.0:
+        raise AssertionError(f"HAN captured vs eager losses: {rows[:, 0]} "
+                             f"against {ref[:, 0]}")
+    out = {"captured_vs_eager_err_of_tol": err}
+    if dtype is None:
+        cpu_data = _on_cpu(data)
+        cpu_rows = run_han_epochs(state(cpu_data), cpu_data, CPU_EPOCHS)
+        cpu_err = float(np.abs(rows[:CPU_EPOCHS] - cpu_rows).max())
+        if cpu_err > PATH_TOL:
+            raise AssertionError(f"HAN captured vs CPU losses: "
+                                 f"{rows[:CPU_EPOCHS, 0]} against "
+                                 f"{cpu_rows[:, 0]}")
+        out.update(cpu_epochs=CPU_EPOCHS, captured_vs_cpu_abs_err=cpu_err)
+    _, wall_ms = _timed(block.run)
+
+    def replay():
+        block.index.zero_()
+        block.graph.replay()
+
+    device_ms = time_ms(replay, reps=5, batch=20)
+    _, eager_ms = _timed(lambda: run_han_epochs(eager, data, 20))
+    out.update(first_chunk_ms_per_epoch=first_ms,
+               captured_wall_ms_per_epoch=wall_ms,
+               device_ms_per_epoch=device_ms,
+               eager_wall_ms_per_epoch=eager_ms,
+               wall_over_device=wall_ms / device_ms)
+    return out
+
+
+def phase_han() -> list[dict]:
+    """HAN through the CLI (``HAN_RUNS``, each at its default 100 epochs):
+    test_acc >= 0.80, a finite loss and exact launch counts; then each
+    full-batch configuration's chunk checked and timed (``_han_chunk``);
+    then
+    HAN card vs CPU on the CLI's 600-paper hybrid (float32 and bfloat16),
+    the 3,025-paper hybrid and its COO graphs."""
+    t0 = time.perf_counter()
+    runs = []
+    for phase, (argv, expect, timed) in HAN_RUNS.items():
+        runs.append(_drive(phase, argv + ["--device", DEVICE,
+                                              "--quiet"], expect))
+        if timed is not None:
+            emit({"phase": phase, "chunk": _han_chunk(*timed)})
+    checks = {}
+    for name, (n_papers, layout, dtype) in {
+            "acm_auto": (600, "auto", None),
+            "acm_auto_bf16": (600, "auto", torch.bfloat16),
+            "acm3025_auto": (HAN_PAPERS_LARGE, "auto", None),
+            "acm3025_coo": (HAN_PAPERS_LARGE, "coo", None)}.items():
+        data = load_acm_han(seed=0, layout=layout, n_papers=n_papers,
+                            device=DEVICE)
+        checks[name] = _han_card_vs_cpu(data, dtype)
+    emit({"phase": "han", "card_vs_cpu": checks,
+          "seconds": time.perf_counter() - t0})
+    return runs
 
 
 def _width(graph, width):
@@ -1987,6 +2210,11 @@ def main() -> None:
     pubmed = load_pubmed_fullbatch(seed=0, layout="hybrid", device=DEVICE)
     large = _large_hybrid()
     cases, floor_ms = phase_kernels(cora, cora_hg, pubmed.graph, large)
+    # HAN's PAP metapath graphs as the loader tiles them (float32 tiles)
+    cases += phase_han_kernels(
+        load_acm_han(seed=0, layout="hybrid", device=DEVICE).graphs[0],
+        load_acm_han(seed=0, layout="hybrid", n_papers=HAN_PAPERS_LARGE,
+                     device=DEVICE).graphs[0])
     cases += (phase_attend_kernels(cora_hg, large)
               + phase_tile_kernels(cora_g.graph, cora_hg, pubmed.graph,
                                    large))
@@ -2034,6 +2262,7 @@ def main() -> None:
     runs.append(_drive("graphsage_hybrid_max",
                        sage + ["--set", "aggregator=max"],
                        {"K7": (4, 2), "K2": (4, 2)}))
+    runs += phase_han()
     row_sum, row_sum_launches = phase_row_sum()
     runs.append(row_sum_launches)
     phase_sage_sampled()

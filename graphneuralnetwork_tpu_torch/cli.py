@@ -19,8 +19,15 @@ mini-batch pipeline on the Pubmed data (``train/sage_loop.py``, no
 kernel: fanout sampling on the host, or on the device with ``--set
 device_sampling=true``), and ``--model graphsage_unsup`` (any layout) its
 unsupervised mode; ``--set`` takes any ``SageConfig`` field there, and
-``--optimizer sgd`` sets lr 0.1 and weight decay 1e-4 first. Prints one
-JSON line.
+``--optimizer sgd`` sets lr 0.1 and weight decay 1e-4 first. ``--model
+han`` trains HAN (hidden 8 x 4 heads, AdamW lr 5e-3 or SGD lr 0.05 under
+warmup-poly, 100 epochs in chunks of 20, no dropout, as the reference) on
+the synthetic ACM's PAP and PLP metapath graphs (``--dataset imdb``: the
+synthetic IMDB; a path: an ACM.mat; ``--set n_papers=N``): ``auto`` picks
+the hybrid layout there (kernels K4-K6), ``coo`` trains on K1 and K2.
+``--model han_batch`` trains ``DenseHAN`` on node minibatches of dense
+sub-adjacencies (plain PyTorch, no kernel; ``--set batch_size``, ``lr``,
+``patience``). Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -35,7 +42,9 @@ _SAGE_FIELDS = ("fanouts", "hidden", "batch_size", "lr", "weight_decay",
                 "epochs", "aggregator", "optimizer", "seed", "num_negatives",
                 "walk_length", "device_sampling", "max_table_degree")
 _SET_KEYS = {"graphsage_hybrid": ("aggregator", "lr"),
-             "graphsage": _SAGE_FIELDS, "graphsage_unsup": _SAGE_FIELDS}
+             "graphsage": _SAGE_FIELDS, "graphsage_unsup": _SAGE_FIELDS,
+             "han": ("n_papers",),
+             "han_batch": ("batch_size", "lr", "patience")}
 
 
 def _apply_overrides(cfg, overrides):
@@ -59,12 +68,14 @@ def _apply_overrides(cfg, overrides):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(
-        description="PyTorch/CUDA GNN trainer (GCN, GAT, GraphSAGE)")
+        description="PyTorch/CUDA GNN trainer (GCN, GAT, GraphSAGE, HAN)")
     ap.add_argument("--model", required=True,
-                    choices=["gcn", "gat", "graphsage", "graphsage_unsup"])
+                    choices=["gcn", "gat", "graphsage", "graphsage_unsup",
+                             "han", "han_batch"])
     ap.add_argument("--dataset", default=None,
                     help="dataset path or 'cora'/'citeseer' (falls back to "
-                         "the synthetic graph of that shape)")
+                         "the synthetic graph of that shape); han and "
+                         "han_batch: an ACM.mat path or 'imdb'")
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--set", action="append", metavar="KEY=VALUE",
@@ -72,7 +83,8 @@ def main(argv=None) -> dict:
                          "max, lr=<float>; sampled graphsage and "
                          "graphsage_unsup: any SageConfig field, e.g. "
                          "fanouts=10,10, aggregator=max, "
-                         "device_sampling=true")
+                         "device_sampling=true; han: n_papers=<int>; "
+                         "han_batch: batch_size, lr, patience")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--resume", action="store_true",
                     help="load a prior checkpoint before training")
@@ -85,7 +97,8 @@ def main(argv=None) -> dict:
                     help="'auto' probes the clustered tile fill as the JAX "
                          "package does (GAT on Cora -> hybrid, GCN -> "
                          "coo); graphsage: 'hybrid' trains full-batch, "
-                         "'auto'/'coo' the sampled pipeline")
+                         "'auto'/'coo' the sampled pipeline; han: the "
+                         "metapath graphs' layout; han_batch: auto or coo")
     ap.add_argument("--dtype", choices=["float32", "bfloat16"],
                     default="float32",
                     help="compute dtype (params stay float32)")
@@ -104,8 +117,13 @@ def main(argv=None) -> dict:
     if unknown:
         ap.error(f"--set {', '.join(unknown)}: not a key of --model {name} "
                  f"--layout {args.layout} (keys: {', '.join(keys) or 'none'})")
+    if name == "han_batch" and args.layout == "hybrid":
+        ap.error("--layout hybrid is not supported for --model han_batch "
+                 "(use --layout auto or coo)")
     if branch in ("graphsage", "graphsage_unsup"):
         return _sampled_sage(name, args)
+    if name in ("han", "han_batch"):
+        return _han(name, args, overrides)
 
     import torch
 
@@ -195,6 +213,74 @@ def _sampled_sage(name, args) -> dict:
     result.update(epochs=cfg.epochs, seconds=seconds,
                   # includes the process's first work on the device
                   epochs_per_s=cfg.epochs / seconds, device=str(device))
+    print(json.dumps({"model": name, **result}))
+    return result
+
+
+def _han(name, args, overrides) -> dict:
+    """HAN on the ACM (or IMDB) metapath graphs: full batch (``han``,
+    ``train/han_loop.py``: ``test_acc``, ``seconds`` and, past one chunk,
+    ``steady_epochs_per_s``) or on node minibatches (``han_batch``,
+    ``train/han_batch.py``: ``test_acc``, ``val_acc``, ``batches``,
+    ``seconds``)."""
+    import torch
+
+    from .core.device import resolve_device
+    from .data import load_acm_han, load_imdb_han
+
+    device = resolve_device(args.device)
+    verbose = not args.quiet
+    cdtype = torch.bfloat16 if args.dtype == "bfloat16" else None
+    epochs = args.epochs or 100
+    if name == "han_batch":
+        from .train.han_batch import fit_han_minibatch
+        data = (load_imdb_han(seed=args.seed, device=device)
+                if args.dataset == "imdb" else
+                load_acm_han(path=args.dataset, seed=args.seed,
+                             device=device))
+        batch_size = int(overrides.get("batch_size", 32))
+        res = fit_han_minibatch(
+            data, batch_size=batch_size,
+            lr=float(overrides.get("lr", 0.05)), epochs=epochs,
+            patience=int(overrides.get("patience", 20)), seed=args.seed,
+            verbose=verbose, dtype=cdtype)
+        steps = max(1, -(-int(data.train_idx.numel()) // batch_size))
+        epochs_run = -(-res.epochs_run // steps)
+        result = dict(test_acc=res.test_acc, val_acc=res.best_val_acc,
+                      batches=res.epochs_run, loss=res.history[-1][1],
+                      epochs=epochs_run, seconds=res.seconds,
+                      epochs_per_s=epochs_run / res.seconds,
+                      device=str(device))
+        print(json.dumps({"model": name, **result}))
+        return result
+
+    from .nn import HAN
+    from .train.han_loop import fit_han
+    from .train.schedule import make_optimizer
+
+    data = (load_imdb_han(seed=args.seed, layout=args.layout, device=device)
+            if args.dataset == "imdb" else
+            load_acm_han(path=args.dataset, seed=args.seed,
+                         layout=args.layout,
+                         n_papers=int(overrides.get("n_papers", 600)),
+                         device=device))
+    model = HAN(int(data.features.shape[1]), num_metapaths=len(data.graphs),
+                num_classes=data.num_classes, hidden=8, num_heads=(4,),
+                dtype=cdtype)
+    # --optimizer sgd: the reference's recipe, SGD lr 0.05 under warmup-poly
+    opt_name = args.optimizer or "adamw"
+    opt = make_optimizer(opt_name, 0.05 if opt_name == "sgd" else 5e-3,
+                         total_steps=epochs, warmup_steps=1, momentum=0.9)
+    res = fit_han(model, data, epochs=epochs, optimizer=opt,
+                  epochs_per_call=min(20, epochs), seed=args.seed,
+                  verbose=verbose)
+    result = dict(test_acc=res.test_acc, loss=res.losses[-1],
+                  epochs=res.epochs_run, seconds=res.seconds,
+                  # includes the first chunk (kernel load, warm-up, capture)
+                  epochs_per_s=res.epochs_run / res.seconds,
+                  device=str(device))
+    if res.steady_epochs_per_s is not None:
+        result["steady_epochs_per_s"] = res.steady_epochs_per_s
     print(json.dumps({"model": name, **result}))
     return result
 

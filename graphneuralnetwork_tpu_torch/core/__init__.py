@@ -14,6 +14,7 @@ from .graph import (  # noqa: F401
     build_graph,
     compute_chunk_spans,
     csr_offsets,
+    dense_adj,
     gat_graph_hybrid,
     gcn_graph,
     gcn_graph_hybrid,
@@ -22,3 +23,4 @@ from .graph import (  # noqa: F401
     sym_normalize_weights,
     symmetrize,
 )
+from .hetero import BipartiteGraph, HeteroGraph, Vocab  # noqa: F401

@@ -249,6 +249,18 @@ def row_normalize_features(x: np.ndarray) -> np.ndarray:
     return x / s
 
 
+def dense_adj(graph: Graph) -> torch.Tensor:
+    """The weighted adjacency as a dense [N, N] matrix on the graph's
+    device, receiver rows (``a[r, s]`` sums the weights of the edges
+    ``s -> r``): small graphs and the node-minibatch HAN only. Only the
+    real edges are scattered; the padding adds nothing."""
+    n, e = graph.n_nodes, graph.n_edges
+    a = torch.zeros(n, n, dtype=graph.edge_weight.dtype, device=graph.device)
+    return a.index_put_((graph.receivers[:e].long(),
+                         graph.senders[:e].long()),
+                        graph.edge_weight[:e], accumulate=True)
+
+
 def gcn_graph(senders: np.ndarray, receivers: np.ndarray, n_nodes: int,
               *, device: str | torch.device = "cuda") -> Graph:
     """Symmetrise, add self loops, sym-normalise: the GCN adjacency, on

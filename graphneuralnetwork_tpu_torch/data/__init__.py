@@ -1,3 +1,9 @@
+from .acm import (  # noqa: F401
+    HeteroNodeData,
+    load_acm_han,
+    load_imdb_han,
+    synthetic_acm,
+)
 from .planetoid import (  # noqa: F401
     NodeClassificationData,
     load_citeseer,

@@ -1,7 +1,8 @@
 """Message-passing convolution layers (torch.nn).
 
 Port of ``graphneuralnetwork_tpu/nn/conv.py``: ``GCNConv``, ``GATConv``
-and ``SAGEConv``, each on the COO and the hybrid layout. Parameter names
+and ``SAGEConv``, each on the COO and the hybrid layout, and
+``DenseGATConv`` over a dense adjacency. Parameter names
 and shapes follow the flax modules (``linear``, ``bias``,
 ``attn_src``/``attn_dst`` [H, F], SAGE's ``neighbor`` and ``self``); a flax
 Dense kernel [in, out] is the transpose of a ``Linear.weight``
@@ -148,6 +149,39 @@ class GATConv(nn.Module):
         if self.training:
             alpha = dropout(alpha, self.attn_dropout, generator)
         out = spmm_weighted(graph, alpha, h)      # [N, H, F], one K1 call
+        if self.concat_heads:
+            return out.reshape(n, self.num_heads * self.features)
+        return out.mean(dim=1)
+
+
+class DenseGATConv(GATConv):
+    """GAT's dense attention over a [N, N] adjacency (receiver rows:
+    ``adj[i, j] != 0`` is the edge j -> i): the full [H, N, N] score
+    matrix, non-edges masked to -9e15, softmax over the senders, dropout
+    on the weights in training, then ``einsum("hij,jhf->ihf")``. For
+    small dense (sub)graphs such as HAN's node minibatches; plain
+    PyTorch, as no kernel stands behind it in the reference either. The
+    parameters are ``GATConv``'s, so weights move between the two."""
+
+    def forward(self, adj: torch.Tensor, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        n = x.shape[0]
+        h = F.linear(x, self.linear.weight.to(x.dtype))
+        h = h.reshape(n, self.num_heads, self.features)
+        hf = h.float()
+        f_src = torch.einsum("nhf,hf->nh", hf, self.attn_src)
+        f_dst = torch.einsum("nhf,hf->nh", hf, self.attn_dst)
+        # e[h, i, j] = LeakyReLU(f_src[j] + f_dst[i]), float32: the mask
+        # value overflows bfloat16
+        e = F.leaky_relu(f_dst.T[:, :, None] + f_src.T[:, None, :],
+                         self.negative_slope)
+        e = torch.where((adj != 0)[None], e, -9e15)
+        alpha = torch.softmax(e, dim=-1)
+        if self.training:
+            alpha = dropout(alpha, self.attn_dropout, generator)
+        out = torch.einsum("hij,jhf->ihf", alpha.to(h.dtype), h)
         if self.concat_heads:
             return out.reshape(n, self.num_heads * self.features)
         return out.mean(dim=1)

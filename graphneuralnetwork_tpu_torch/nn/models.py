@@ -1,6 +1,6 @@
 """Node-classification models assembled from the conv layers.
 
-Port of ``GCN``, ``GAT`` and ``GraphSAGE`` of
+Port of ``GCN``, ``GAT``, ``DenseGAT`` and ``GraphSAGE`` of
 ``graphneuralnetwork_tpu/nn/models.py``, with the same layer names
 (``conv1``/``conv2``, ``attn1``/``attn_out``, ``sage0``.../``sage_out``).
 Dropout is active in ``train()`` mode and draws from the ``generator``
@@ -18,7 +18,7 @@ from torch.nn import functional as F
 
 from ..core.bcsr import HybridGraph
 from ..core.graph import Graph
-from .conv import GATConv, GCNConv, SAGEConv, dropout
+from .conv import DenseGATConv, GATConv, GCNConv, SAGEConv, dropout
 
 
 class GCN(nn.Module):
@@ -43,20 +43,23 @@ class GCN(nn.Module):
 
 
 class GAT(nn.Module):
+    #: the layer type (``DenseGAT`` takes ``DenseGATConv``)
+    conv = GATConv
+
     def __init__(self, in_features: int, hidden: int = 8,
                  num_classes: int = 7, num_heads: int = 8,
                  dropout: float = 0.6, negative_slope: float = 0.2,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dropout = dropout
-        self.attn1 = GATConv(in_features, hidden, num_heads=num_heads,
-                             concat_heads=True,
-                             negative_slope=negative_slope,
-                             attn_dropout=dropout, dtype=dtype)
-        self.attn_out = GATConv(hidden * num_heads, num_classes,
-                                num_heads=1, concat_heads=False,
-                                negative_slope=negative_slope,
-                                attn_dropout=dropout, dtype=dtype)
+        self.attn1 = self.conv(in_features, hidden, num_heads=num_heads,
+                               concat_heads=True,
+                               negative_slope=negative_slope,
+                               attn_dropout=dropout, dtype=dtype)
+        self.attn_out = self.conv(hidden * num_heads, num_classes,
+                                  num_heads=1, concat_heads=False,
+                                  negative_slope=negative_slope,
+                                  attn_dropout=dropout, dtype=dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         self.attn1.reset_parameters(generator)
@@ -70,6 +73,14 @@ class GAT(nn.Module):
         if self.training:
             h = dropout(h, self.dropout, generator)
         return self.attn_out(graph, h, generator).float()
+
+
+class DenseGAT(GAT):
+    """``GAT`` over a dense [N, N] adjacency (receiver rows) through
+    ``DenseGATConv``; the layer names and parameters are ``GAT``'s, so
+    weights move between the two."""
+
+    conv = DenseGATConv
 
 
 class GraphSAGE(nn.Module):

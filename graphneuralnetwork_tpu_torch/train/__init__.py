@@ -1,4 +1,6 @@
 from .checkpoint import restore_checkpoint, save_checkpoint  # noqa: F401
+from .han_batch import fit_han_minibatch  # noqa: F401
+from .han_loop import fit_han  # noqa: F401
 from .loop import (  # noqa: F401
     FitResult,
     TrainState,

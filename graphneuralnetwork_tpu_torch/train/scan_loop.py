@@ -92,6 +92,10 @@ class CapturedBlock:
         self.graph: Optional[EpochGraph] = None
         self.launches: dict[str, int] = {}
 
+    def warm(self) -> None:
+        """Build the data's first-use caches before the capture."""
+        self.data.graph.warm()
+
     def epoch(self) -> None:
         data = self.data
         loss, train_acc = train_step(self.state, data)
@@ -105,7 +109,7 @@ class CapturedBlock:
         self.index.zero_()
         replays = self.epochs_per_call
         if self.graph is None:
-            self.data.graph.warm()
+            self.warm()
             graph = EpochGraph(self.data.features.device,
                                self.state.generator)
             graph.warm_up(self.epoch)
