@@ -39,6 +39,12 @@ Phases, each printing one JSON line:
                synthetic ACM (an empty remainder) and of the 3,025-paper
                one (a remainder of ~12,000 edges), x in float32 and in
                bfloat16 over float32 tiles, without and with dropout;
+               and at GTN's shapes (``phase_gtn_kernels``) K1 on the
+               final convolution of the wedge plan of the 920-node ACM
+               stack (C x hidden = 128, float32 and bfloat16) and of the
+               3,025-paper stack (float32), and on the 920-node plan's
+               second composition (its 2 channels, over rows of (output
+               slot, edge type));
   4. path    — GCN, GAT-COO, GAT on the hybrid Cora graph (dropout off,
                then attention dropout with the same masks on both sides),
                GCN on the Cora hybrid and GraphSAGE mean and max on the
@@ -108,6 +114,19 @@ must reach test_acc >= 0.80 with exact launch counts.
                epochs/s, then each run instrumented: wall ms per training
                step split into host sampling, copy, host call and device
                time.
+ 16. gtn     — GTN through the CLI, 40 epochs each in 10-epoch chunks of
+               one captured epoch: ``--model gtn`` (dense, no kernel) and
+               ``--layout sparse`` (K1), each in float32 and bfloat16:
+               test_acc >= 0.80 and exact launch counts (``GTN_RUNS``);
+               GTN card vs CPU (``GTN_TOL``) at 920 nodes, dense and
+               sparse, float32 and bfloat16; the captured chunk bit-equal
+               to eager epochs from a twin state (dense float32 and
+               bfloat16, sparse float32 at 920 nodes; dense and sparse
+               float32 at 4,637), with the wall ms per epoch of both, the
+               device ms per epoch, the first chunk's ms and a replay's
+               costliest kernels (``torch.profiler``); the sparse
+               model's logits within ``GTN_DENSE_SPARSE`` of the dense
+               model's at 4,637 nodes.
 Then a ``previous_design`` line (every K2-K10 case beside its previous
 design's time where ``PREVIOUS_DESIGN_MS`` records one, not measured
 here), a ``kernels`` summary line (K1-K10 and the two row-sum kernels,
@@ -118,6 +137,7 @@ Any failure raises and exits non-zero without the last line.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import faulthandler
 import json
@@ -132,10 +152,16 @@ from graphneuralnetwork_tpu_torch.cli import main as cli_main
 from graphneuralnetwork_tpu_torch.core.bcsr import (COL_BLOCK, ROW_BLOCK,
                                                     build_hybrid)
 from graphneuralnetwork_tpu_torch.core.graph import build_graph
-from graphneuralnetwork_tpu_torch.data import (load_acm_han, load_cora,
+from graphneuralnetwork_tpu_torch.data import acm as acm_data
+from graphneuralnetwork_tpu_torch.data import (load_acm_gtn, load_acm_han,
+                                               load_cora, synthetic_acm,
                                                load_pubmed,
                                                load_pubmed_fullbatch)
 from graphneuralnetwork_tpu_torch.nn import GAT, GCN, HAN, GraphSAGE
+from graphneuralnetwork_tpu_torch.nn.gtn import GTN
+from graphneuralnetwork_tpu_torch.nn.gtn_sparse import (SparseGTN,
+                                                        build_gtn_plan,
+                                                        stacked_adj_to_sparse)
 from graphneuralnetwork_tpu_torch.nn.sage import SampledGraphSAGE
 from graphneuralnetwork_tpu_torch.nn import conv as nn_conv
 from graphneuralnetwork_tpu_torch.nn import models as nn_models
@@ -159,6 +185,9 @@ from graphneuralnetwork_tpu_torch.sampling import (csr_from_edges,
 from graphneuralnetwork_tpu_torch.tools import bench_dma, profile_attend
 from graphneuralnetwork_tpu_torch.tools.timing import time_ms
 from graphneuralnetwork_tpu_torch.train import sage_loop
+from graphneuralnetwork_tpu_torch.train.gtn_loop import (GTNBlock,
+                                                         create_gtn_state,
+                                                         run_gtn_epochs)
 from graphneuralnetwork_tpu_torch.train.han_loop import (HANBlock,
                                                          run_han_epochs)
 from graphneuralnetwork_tpu_torch.train.loop import (create_train_state,
@@ -1695,6 +1724,219 @@ def phase_han() -> list[dict]:
     return runs
 
 
+#: GTN in the CLI: 2 channels, 2 layers, hidden 64 (the reference's
+#: defaults), 10-epoch chunks
+GTN_DIMS = dict(channels=2, num_layers=2, hidden=64)
+GTN_CHUNK = 10
+#: GTN card vs CPU, (logits, gradients) by dtype as ``HAN_TOL`` measures
+#: them: the CPU tests' tolerances (``tests/test_torch_gtn.py``)
+GTN_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (3e-2, 3e-2)}
+#: The sparse model's logits against the dense model's, |sparse - dense|
+#: <= t + t |dense|: JAX's own test's tolerance (``tests/test_models.py``)
+GTN_DENSE_SPARSE = 2e-4
+#: GTN's launches (per epoch, final test forward). The sparse forward
+#: runs K1 five times (step 0's composition, step 1's degree sum, step
+#: 1's composition, the final degree sum, the final ``spmm_weighted``),
+#: its backward twice (each composition's transpose, over the wedges
+#: sorted by input slot; the degree sums' and the convolution's backward
+#: are gathers). The dense model runs matrix products and no kernel of
+#: the port.
+GTN_SPARSE = {"K1": (7, 5)}
+GTN_RUNS = {
+    "gtn": (["--model", "gtn"], {}),
+    "gtn_bf16": (["--model", "gtn", "--dtype", "bfloat16"], {}),
+    "gtn_sparse": (["--model", "gtn", "--layout", "sparse"], GTN_SPARSE),
+    "gtn_sparse_bf16": (["--model", "gtn", "--layout", "sparse", "--dtype",
+                         "bfloat16"], GTN_SPARSE),
+}
+
+
+def gtn_data(n_papers: int):
+    """GTN's input on the card: the CLI's 920-node ACM stack (600
+    papers), or the synthetic ACM that ``load_acm_han`` makes at
+    ``n_papers``, stacked by the GTN loader's own code."""
+    if n_papers == 600:
+        return load_acm_gtn(seed=0, device=DEVICE)
+    hg, feats, labels = synthetic_acm(
+        seed=0, n_papers=n_papers, n_authors=n_papers // 2,
+        n_subjects=max(20, n_papers // 30))
+    return acm_data._assemble_gtn_data(hg, feats, labels, 0, 200, 100,
+                                       torch.device(DEVICE))
+
+
+def gtn_plan(data):
+    """``data``'s wedge plan, as the CLI builds it, on ``data``'s device."""
+    return build_gtn_plan(stacked_adj_to_sparse(data.adj),
+                          int(data.adj.shape[1]), device=data.device)
+
+
+def _gtn_model(data, sparse: bool, dtype):
+    return (SparseGTN if sparse else GTN)(
+        int(data.features.shape[1]), int(data.adj.shape[0]),
+        data.num_classes, **GTN_DIMS, dtype=dtype)
+
+
+def phase_gtn_kernels(plan, plan_large) -> list[dict]:
+    """K1 at GTN's sparse shapes: the final convolution's [E_pad, C x
+    hidden] on the 920-node plan (float32, bfloat16) and on the 4,637-node
+    plan (float32), and the 920-node plan's second composition
+    [W_pad, C] over its (output slot, edge type) rows."""
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    width = GTN_DIMS["channels"] * GTN_DIMS["hidden"]
+    cases = []
+    for label, g, f, dtype in [
+            ("gtn_final", plan.final_graph, width, torch.float32),
+            ("gtn_final", plan.final_graph, width, torch.bfloat16),
+            ("gtn3025_final", plan_large.final_graph, width, torch.float32),
+            ("gtn_compose1", plan.step_fwd[1].graph, GTN_DIMS["channels"],
+             torch.float32)]:
+        values = torch.randn(g.n_edge_pad, f, device=DEVICE, generator=gen)
+        cases.append(_k1_case(values.to(dtype), g.receivers, g.row_ptr,
+                              g.n_nodes, label))
+        emit({"phase": "kernels", **cases[-1]})
+    return cases
+
+
+def _gtn_on_cpu(data):
+    return dataclasses.replace(
+        data, **{f.name: getattr(data, f.name).cpu()
+                 for f in dataclasses.fields(data)
+                 if isinstance(getattr(data, f.name), torch.Tensor)},
+        device=torch.device("cpu"))
+
+
+def _gtn_card_vs_cpu(data, plan, sparse, dtype) -> dict:
+    """GTN at the CLI's widths, one forward and the training loss's
+    backward: on the CPU (plain versions) and with the same weights on the
+    card."""
+    ref, dev = _gtn_model(data, sparse, dtype), _gtn_model(data, sparse,
+                                                          dtype)
+    ref.reset_parameters(torch.Generator().manual_seed(1))
+    dev.load_state_dict(ref.state_dict())
+    dev.to(DEVICE)
+    cpu = _gtn_on_cpu(data)
+    cpu_graph = gtn_plan(cpu) if sparse else cpu.adj
+    outs = []
+    for model, d, g in ((ref, cpu, cpu_graph),
+                        (dev, data, plan if sparse else data.adj)):
+        logits = model(g, d.features)
+        masked_softmax_cross_entropy(logits[d.target_idx[d.train_idx]],
+                                     d.labels[d.train_idx]).backward()
+        outs.append((logits.detach().cpu(), {
+            k: p.grad.cpu() for k, p in model.named_parameters()}))
+    (lr, gr), (ld, gd) = outs
+    if not torch.isfinite(ld).all() or ld.shape != lr.shape:
+        raise AssertionError("GTN: bad logits on the card")
+    err = float((ld - lr).abs().max()) / float(lr.abs().max())
+    gerr = _module_errs(gd, gr)
+    tol = GTN_TOL["float32" if dtype is None else "bfloat16"]
+    if err > tol[0] or max(gerr.values()) > tol[1]:
+        raise AssertionError(f"GTN card vs CPU: logits {err}, gradients "
+                             f"{gerr} (tolerance {tol})")
+    return dict(logits_rel_err=err, grad_rel_err=gerr, tolerance=tol)
+
+
+def _gtn_chunk(data, graph, sparse, dtype) -> dict:
+    """A 10-epoch ``GTNBlock`` chunk against ``run_gtn_epochs`` from a
+    twin state: losses and parameters bit-equal. Then the times: wall ms
+    per epoch of the first chunk (warm-up, capture, replays), of a
+    captured chunk and of 10 eager epochs; device ms per epoch (a replay,
+    with the chunk's index reset, back to back behind a sleep kernel:
+    ``time_ms``)."""
+    def state():
+        return create_gtn_state(_gtn_model(data, sparse, dtype), data, 0)
+
+    block, eager = GTNBlock(state(), data, graph, GTN_CHUNK), state()
+    rows, first_ms = _timed(block.run)
+    ref = run_gtn_epochs(eager, data, graph, GTN_CHUNK)
+    if rows.shape != (GTN_CHUNK, 1) or not np.isfinite(rows).all():
+        raise AssertionError(f"GTN captured losses {rows}")
+    same = [k for (k, a), b in zip(
+        block.state.model.state_dict().items(),
+        eager.model.state_dict().values()) if not torch.equal(a, b)]
+    if not np.array_equal(rows, ref) or same:
+        raise AssertionError(f"GTN captured vs eager: losses {rows[:, 0]} "
+                             f"against {ref[:, 0]}, parameters that "
+                             f"differ {same}")
+    _, wall_ms = _timed(block.run)
+
+    def replay():
+        block.index.zero_()
+        block.graph.replay()
+
+    device_ms = time_ms(replay, reps=3, batch=5)
+    _, eager_ms = _timed(lambda: run_gtn_epochs(eager, data, graph,
+                                                GTN_CHUNK))
+    return dict(captured_bit_equal_to_eager=True,
+                first_chunk_ms_per_epoch=first_ms,
+                captured_wall_ms_per_epoch=wall_ms,
+                device_ms_per_epoch=device_ms,
+                eager_wall_ms_per_epoch=eager_ms,
+                wall_over_device=wall_ms / device_ms,
+                top_kernels_ms_per_epoch=_top_kernels(replay, 3))
+
+
+def _top_kernels(fn, calls: int, top: int = 6) -> dict:
+    """The kernels that take the most device time over ``calls`` calls of
+    ``fn`` under ``torch.profiler``, ms per call (as ``profile_torch.py``
+    sums them)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            by_name[e.name] += e.time_range.elapsed_us()
+    return {name[:80]: us / 1e3 / calls
+            for name, us in by_name.most_common(top)}
+
+
+def phase_gtn(data, data_large, plan, plan_large) -> list[dict]:
+    """GTN through the CLI (``GTN_RUNS``, 40 epochs each): test_acc >=
+    0.80 and exact launch counts; card vs CPU at 920 nodes; the captured
+    chunks (``_gtn_chunk``) at 920 and 4,637 nodes; the sparse model
+    against the dense one at 4,637 nodes."""
+    t0 = time.perf_counter()
+    runs = [_drive(phase, argv + ["--device", DEVICE, "--quiet"], expect)
+            for phase, (argv, expect) in GTN_RUNS.items()]
+    checks = {f"{'sparse' if sparse else 'dense'}_{name}":
+              _gtn_card_vs_cpu(data, plan, sparse, dtype)
+              for sparse in (False, True)
+              for name, dtype in (("float32", None),
+                                  ("bfloat16", torch.bfloat16))}
+    n, n_large = plan.n_nodes, plan_large.n_nodes
+    chunks = {
+        f"dense_{n}": _gtn_chunk(data, data.adj, False, None),
+        f"dense_bf16_{n}": _gtn_chunk(data, data.adj, False, torch.bfloat16),
+        f"sparse_{n}": _gtn_chunk(data, plan, True, None),
+        f"dense_{n_large}": _gtn_chunk(data_large, data_large.adj, False,
+                                       None),
+        f"sparse_{n_large}": _gtn_chunk(data_large, plan_large, True, None),
+    }
+    dense, sparse = (_gtn_model(data_large, False, None),
+                     _gtn_model(data_large, True, None))
+    dense.reset_parameters(torch.Generator().manual_seed(1))
+    sparse.load_state_dict(dense.state_dict())
+    with torch.no_grad():
+        ld = dense.to(DEVICE)(data_large.adj, data_large.features)
+        ls = sparse.to(DEVICE)(plan_large, data_large.features)
+    gap = float(((ls - ld).abs() / (GTN_DENSE_SPARSE
+                                    * (1 + ld.abs()))).max())
+    if not torch.isfinite(ls).all() or gap > 1.0:
+        raise AssertionError(f"GTN sparse vs dense at {n_large} nodes: "
+                             f"{gap} of the tolerance")
+    emit({"phase": "gtn", "card_vs_cpu": checks, "chunks": chunks,
+          "sparse_vs_dense_large_of_tol": gap, "nodes": [n, n_large],
+          "nnz": [plan.nnz, plan_large.nnz],
+          "wedges": [plan.wedge_counts, plan_large.wedge_counts],
+          "seconds": time.perf_counter() - t0})
+    return runs
+
+
 def _width(graph, width):
     return lambda c: c["graph"] == graph and c["shape"][1] == width
 
@@ -2215,6 +2457,11 @@ def main() -> None:
         load_acm_han(seed=0, layout="hybrid", device=DEVICE).graphs[0],
         load_acm_han(seed=0, layout="hybrid", n_papers=HAN_PAPERS_LARGE,
                      device=DEVICE).graphs[0])
+    # GTN's wedge plans: the CLI's 920-node ACM stack and the 3,025-paper
+    # one (4,637 nodes)
+    gtn_small, gtn_large = gtn_data(600), gtn_data(HAN_PAPERS_LARGE)
+    gtn_plans = (gtn_plan(gtn_small), gtn_plan(gtn_large))
+    cases += phase_gtn_kernels(*gtn_plans)
     cases += (phase_attend_kernels(cora_hg, large)
               + phase_tile_kernels(cora_g.graph, cora_hg, pubmed.graph,
                                    large))
@@ -2263,6 +2510,8 @@ def main() -> None:
                        sage + ["--set", "aggregator=max"],
                        {"K7": (4, 2), "K2": (4, 2)}))
     runs += phase_han()
+    runs += phase_gtn(gtn_small, gtn_large, *gtn_plans)
+    del gtn_small, gtn_large, gtn_plans
     row_sum, row_sum_launches = phase_row_sum()
     runs.append(row_sum_launches)
     phase_sage_sampled()

@@ -27,7 +27,13 @@ synthetic IMDB; a path: an ACM.mat; ``--set n_papers=N``): ``auto`` picks
 the hybrid layout there (kernels K4-K6), ``coo`` trains on K1 and K2.
 ``--model han_batch`` trains ``DenseHAN`` on node minibatches of dense
 sub-adjacencies (plain PyTorch, no kernel; ``--set batch_size``, ``lr``,
-``patience``). Prints one JSON line.
+``patience``). ``--model gtn`` trains GTN (2 channels, 2 layers, hidden 64,
+AdamW at 2.5e-3 for the ``gt*`` layers and 5e-3 for the rest, weight decay
+1e-3, 40 epochs in chunks of 10, as the reference) on the synthetic ACM's
+edge-type stack (``--dataset imdb``: the synthetic IMDB; a path: a
+``train.pkl`` or an ACM.mat): ``auto``/``coo`` the dense model (matrix
+products, no kernel), ``--layout sparse`` the wedge-plan ``SparseGTN``
+(K1). Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -68,14 +74,16 @@ def _apply_overrides(cfg, overrides):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(
-        description="PyTorch/CUDA GNN trainer (GCN, GAT, GraphSAGE, HAN)")
+        description="PyTorch/CUDA GNN trainer (GCN, GAT, GraphSAGE, HAN, "
+                    "GTN)")
     ap.add_argument("--model", required=True,
                     choices=["gcn", "gat", "graphsage", "graphsage_unsup",
-                             "han", "han_batch"])
+                             "han", "han_batch", "gtn"])
     ap.add_argument("--dataset", default=None,
                     help="dataset path or 'cora'/'citeseer' (falls back to "
                          "the synthetic graph of that shape); han and "
-                         "han_batch: an ACM.mat path or 'imdb'")
+                         "han_batch: an ACM.mat path or 'imdb'; gtn: a "
+                         "train.pkl or ACM.mat path or 'imdb'")
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--set", action="append", metavar="KEY=VALUE",
@@ -92,13 +100,15 @@ def main(argv=None) -> dict:
     ap.add_argument("--optimizer", choices=["adamw", "sgd"], default=None,
                     help="adamw (default) or the reference's SGD + "
                          "warmup-poly recipe")
-    ap.add_argument("--layout", choices=["auto", "coo", "hybrid"],
+    ap.add_argument("--layout", choices=["auto", "coo", "hybrid", "sparse"],
                     default="auto",
                     help="'auto' probes the clustered tile fill as the JAX "
                          "package does (GAT on Cora -> hybrid, GCN -> "
                          "coo); graphsage: 'hybrid' trains full-batch, "
                          "'auto'/'coo' the sampled pipeline; han: the "
-                         "metapath graphs' layout; han_batch: auto or coo")
+                         "metapath graphs' layout; han_batch: auto or coo; "
+                         "gtn: 'auto'/'coo' the dense model, 'sparse' "
+                         "(gtn only) the wedge-plan composition")
     ap.add_argument("--dtype", choices=["float32", "bfloat16"],
                     default="float32",
                     help="compute dtype (params stay float32)")
@@ -117,13 +127,18 @@ def main(argv=None) -> dict:
     if unknown:
         ap.error(f"--set {', '.join(unknown)}: not a key of --model {name} "
                  f"--layout {args.layout} (keys: {', '.join(keys) or 'none'})")
-    if name == "han_batch" and args.layout == "hybrid":
-        ap.error("--layout hybrid is not supported for --model han_batch "
-                 "(use --layout auto or coo)")
+    layouts = {"han_batch": ("auto", "coo"),
+               "gtn": ("auto", "coo", "sparse")}.get(
+                   name, ("auto", "coo", "hybrid"))
+    if args.layout not in layouts:
+        ap.error(f"--layout {args.layout} is not supported for --model "
+                 f"{name} (use --layout {' or '.join(layouts)})")
     if branch in ("graphsage", "graphsage_unsup"):
         return _sampled_sage(name, args)
     if name in ("han", "han_batch"):
         return _han(name, args, overrides)
+    if name == "gtn":
+        return _gtn(args)
 
     import torch
 
@@ -282,6 +297,52 @@ def _han(name, args, overrides) -> dict:
     if res.steady_epochs_per_s is not None:
         result["steady_epochs_per_s"] = res.steady_epochs_per_s
     print(json.dumps({"model": name, **result}))
+    return result
+
+
+def _gtn(args) -> dict:
+    """GTN on the ACM (or IMDB) edge-type stack, dense or over the wedge
+    plan (``train/gtn_loop.py``): ``test_acc``, ``f1``, ``precision``,
+    ``recall``, ``seconds`` and, past one chunk, ``steady_epochs_per_s``."""
+    import torch
+
+    from .core.device import resolve_device
+    from .data import load_acm_gtn, load_imdb_gtn
+    from .nn.gtn import GTN
+    from .nn.gtn_sparse import (SparseGTN, build_gtn_plan,
+                                stacked_adj_to_sparse)
+    from .train.gtn_loop import fit_gtn
+
+    device = resolve_device(args.device)
+    data = (load_imdb_gtn(seed=args.seed, device=device)
+            if args.dataset == "imdb" else
+            load_acm_gtn(path=args.dataset, seed=args.seed, device=device))
+    dims = dict(in_features=int(data.features.shape[1]),
+                num_types=int(data.adj.shape[0]),
+                num_classes=data.num_classes, channels=2, num_layers=2,
+                hidden=64,
+                dtype=torch.bfloat16 if args.dtype == "bfloat16" else None)
+    if args.layout == "sparse":
+        graph = build_gtn_plan(stacked_adj_to_sparse(data.adj),
+                               int(data.adj.shape[1]), num_layers=2,
+                               device=device)
+        model = SparseGTN(**dims)
+    else:
+        graph, model = data.adj, GTN(**dims)
+    epochs = args.epochs or 40
+    res = fit_gtn(model, data, graph, epochs=epochs,
+                  epochs_per_call=min(10, epochs), seed=args.seed,
+                  verbose=not args.quiet)
+    result = dict(test_acc=res.test_acc, f1=res.f1,
+                  precision=res.precision, recall=res.recall,
+                  loss=res.losses[-1], epochs=res.epochs_run,
+                  seconds=res.seconds,
+                  # includes the first chunk (warm-up, capture)
+                  epochs_per_s=res.epochs_run / res.seconds,
+                  device=str(device))
+    if res.steady_epochs_per_s is not None:
+        result["steady_epochs_per_s"] = res.steady_epochs_per_s
+    print(json.dumps({"model": "gtn", "layout": args.layout, **result}))
     return result
 
 

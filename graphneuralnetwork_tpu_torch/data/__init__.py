@@ -1,6 +1,9 @@
 from .acm import (  # noqa: F401
     HeteroNodeData,
+    StackedAdjData,
+    load_acm_gtn,
     load_acm_han,
+    load_imdb_gtn,
     load_imdb_han,
     synthetic_acm,
 )

@@ -1,6 +1,6 @@
-"""ACM and IMDB heterogeneous datasets in HAN's form.
+"""ACM and IMDB heterogeneous datasets in HAN's and GTN's forms.
 
-Port of the HAN half of ``graphneuralnetwork_tpu/data/acm.py``: the PAP
+Port of ``graphneuralnetwork_tpu/data/acm.py``. HAN's form: the PAP
 and PLP metapath graphs over papers (MAM and MDM over movies for IMDB),
 row-normalised paper features and a float-mask split (<= 0.2 train,
 <= 0.3 val, the rest test), drawn from the same
@@ -15,6 +15,13 @@ unit weights, float32 tiles in every compute dtype) as a ``HybridGraph``,
 with features and labels permuted and the split indices mapped through the
 inverse permutation; ``layout="auto"`` probes the clustered tile fill with
 the attention objective and picks one of the two.
+
+GTN's form (``load_acm_gtn``, ``load_imdb_gtn``): the dense stack
+[T, N, N] of the edge-type adjacencies over all nodes (PA, AP, PL, LP and
+the identity), features for every node, the papers' labels and per-class
+splits (200 train and 100 validation papers a class, the rest test),
+equal array for array to the reference's; it also reads the reference's
+processed ``train.pkl``.
 """
 
 from __future__ import annotations
@@ -41,6 +48,22 @@ class HeteroNodeData:
     features: torch.Tensor     # float32[N, F] row-normalised
     labels: torch.Tensor       # int64[N]
     train_idx: torch.Tensor    # int64
+    val_idx: torch.Tensor
+    test_idx: torch.Tensor
+    num_classes: int
+    device: torch.device
+
+
+@dataclass(frozen=True)
+class StackedAdjData:
+    """GTN's input: the dense edge-type stack and the target nodes' labels
+    and splits."""
+
+    adj: torch.Tensor          # float32[T, N, N], the identity slice last
+    features: torch.Tensor     # float32[N, F] row-normalised
+    labels: torch.Tensor       # int64[n_targets], of the target nodes
+    target_idx: torch.Tensor   # int64: the target (paper) nodes' ids
+    train_idx: torch.Tensor    # int64, into the target nodes
     val_idx: torch.Tensor
     test_idx: torch.Tensor
     num_classes: int
@@ -257,3 +280,125 @@ def load_imdb_han(path: str | None = None, seed: int = 0,
             n_classes=3, seed=seed)
     return _assemble_han_data(hg, feats, labels, seed, layout,
                               min_edges_per_tile, device)
+
+
+def _per_class_split(labels: np.ndarray, seed: int, per_class_train: int,
+                     per_class_val: int):
+    """The reference's per-class split: each class's targets shuffled by
+    one ``default_rng(seed)`` stream, the first ``per_class_train`` to
+    train (leaving at least two), the next ``per_class_val`` to validation
+    (leaving at least one), the rest to test; each split sorted."""
+    rng = np.random.default_rng(seed)
+    train, val, test = [], [], []
+    for c in range(int(labels.max()) + 1):
+        idx = np.flatnonzero(labels == c)
+        rng.shuffle(idx)
+        k1 = min(per_class_train, max(len(idx) - 2, 1))
+        k2 = min(per_class_val, max(len(idx) - k1 - 1, 0))
+        train.extend(idx[:k1])
+        val.extend(idx[k1:k1 + k2])
+        test.extend(idx[k1 + k2:])
+    return tuple(np.array(sorted(s), np.int64) for s in (train, val, test))
+
+
+def _stacked_data(adj, feats, labels, n_targets, seed, per_class_train,
+                  per_class_val, device) -> StackedAdjData:
+    train, val, test = _per_class_split(labels, seed, per_class_train,
+                                        per_class_val)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return StackedAdjData(
+        adj=dev(adj), features=dev(row_normalize_features(feats)),
+        labels=dev(labels.astype(np.int64)),
+        target_idx=torch.arange(n_targets, device=device),
+        train_idx=dev(train), val_idx=dev(val), test_idx=dev(test),
+        num_classes=int(labels.max()) + 1, device=device)
+
+
+def _load_gtn_pickle(path: str, seed: int, per_class_train: int,
+                     per_class_val: int,
+                     device: torch.device) -> StackedAdjData:
+    """Read the reference's processed ``train.pkl``, a tuple (paper ids,
+    paper labels, one scipy sparse matrix an edge type over all nodes,
+    node features), and stack the types and the identity. The file is
+    unpickled: read only a file of a source you trust."""
+    import pickle
+
+    with open(path, "rb") as f:
+        _, paper_target, edges, node_feature = pickle.load(f)
+    n = edges[0].shape[0]
+    slices = [np.asarray(e.todense(), np.float32) for e in edges]
+    slices.append(np.eye(n, dtype=np.float32))
+    labels = np.asarray(paper_target, np.int32)
+    return _stacked_data(np.stack(slices), np.asarray(node_feature,
+                                                      np.float32),
+                         labels, len(labels), seed, per_class_train,
+                         per_class_val, device)
+
+
+def _assemble_gtn_data(hg, feats, labels, seed: int, per_class_train: int,
+                       per_class_val: int,
+                       device: torch.device) -> StackedAdjData:
+    """GTN's input from a paper/author/subject ``HeteroGraph``: nodes
+    numbered papers, then authors, then subjects; the stack PA, AP, PL, LP
+    and the identity; an author's or subject's features the sum of its
+    papers'; the per-class split of the papers."""
+    n_p, n_a, n_l = (hg.node_counts["paper"], hg.node_counts["author"],
+                     hg.node_counts["subject"])
+    n = n_p + n_a + n_l
+    off_a, off_l = n_p, n_p + n_a
+
+    def dense(key, off_src, off_dst):
+        s, d, _ = hg.relations[key]
+        a = np.zeros((n, n), np.float32)
+        a[s + off_src, d + off_dst] = 1.0
+        return a
+
+    adj = np.stack([
+        dense(("paper", "pa", "author"), 0, off_a),
+        dense(("author", "ap", "paper"), off_a, 0),
+        dense(("paper", "pl", "subject"), 0, off_l),
+        dense(("subject", "lp", "paper"), off_l, 0),
+        np.eye(n, dtype=np.float32)])
+    full_feats = np.zeros((n, feats.shape[1]), np.float32)
+    full_feats[:n_p] = feats
+    pa_s, pa_d, _ = hg.relations[("paper", "pa", "author")]
+    np.add.at(full_feats, pa_d + off_a, feats[pa_s])
+    pl_s, pl_d, _ = hg.relations[("paper", "pl", "subject")]
+    np.add.at(full_feats, pl_d + off_l, feats[pl_s])
+    return _stacked_data(adj, full_feats, labels, n_p, seed,
+                         per_class_train, per_class_val, device)
+
+
+def load_acm_gtn(path: str | None = None, seed: int = 0,
+                 per_class_train: int = 200, per_class_val: int = 100,
+                 device: str | torch.device = "cuda") -> StackedAdjData:
+    """GTN's input on ``device`` (the card by default). ``path`` names the
+    reference's ``train.pkl`` (``.pkl``) or an ACM.mat, read when it
+    exists; otherwise the synthetic ACM of 600 papers, 300 authors and 20
+    subjects (920 nodes)."""
+    device = resolve_device(device)
+    if path is not None and os.path.exists(path):
+        if path.endswith(".pkl"):
+            return _load_gtn_pickle(path, seed, per_class_train,
+                                    per_class_val, device)
+        hg, feats, labels = _load_acm_mat(path)
+    else:
+        hg, feats, labels = synthetic_acm(seed=seed)
+    return _assemble_gtn_data(hg, feats, labels, seed, per_class_train,
+                              per_class_val, device)
+
+
+def load_imdb_gtn(path: str | None = None, seed: int = 0,
+                  device: str | torch.device = "cuda") -> StackedAdjData:
+    """IMDB for GTN: the reference's ``train.pkl`` when ``path`` names
+    one, otherwise the synthetic ACM construction from seed ``seed +
+    1000``; 300 train and 300 validation targets a class."""
+    device = resolve_device(device)
+    if path is not None and os.path.exists(path) and path.endswith(".pkl"):
+        return _load_gtn_pickle(path, seed, 300, 300, device)
+    hg, feats, labels = synthetic_acm(seed=seed + 1000)
+    return _assemble_gtn_data(hg, feats, labels, seed + 1000, 300, 300,
+                              device)

@@ -1,8 +1,8 @@
-"""Classification metrics (port of the node-classification and binary-logit
-parts of ``graphneuralnetwork_tpu/train/metrics.py``). The accuracies and
-the softmax loss return float32 scalars on the logits' device, so a
-training loop can keep them there; the sigmoid loss is elementwise, as
-optax's is."""
+"""Classification metrics (port of the node-classification, binary-logit
+and precision/recall parts of ``graphneuralnetwork_tpu/train/metrics.py``).
+The accuracies, the softmax loss and the precision/recall/F-beta triple
+return float32 scalars on the logits' device, so a training loop can keep
+them there; the sigmoid loss is elementwise, as optax's is."""
 
 from __future__ import annotations
 
@@ -44,3 +44,35 @@ def sigmoid_binary_cross_entropy(logits, labels):
     labels = labels.to(logits.dtype)
     return (-labels * F.logsigmoid(logits)
             - (1.0 - labels) * F.logsigmoid(-logits))
+
+
+def confusion_counts(pred, labels, num_classes: int, mask=None):
+    """Per-class one-vs-rest (TP, FP, FN, TN), each float32 [num_classes];
+    ``mask`` weights the rows (all 1 when None)."""
+    m = (torch.ones(labels.shape, device=labels.device) if mask is None
+         else mask.float())[:, None]
+    onehot_p = F.one_hot(pred.long(), num_classes).float() * m
+    onehot_l = F.one_hot(labels.long(), num_classes).float() * m
+    tp = torch.sum(onehot_p * onehot_l, dim=0)
+    fp = torch.sum(onehot_p * (m - onehot_l * m), dim=0)
+    fn = torch.sum((onehot_l - onehot_p * onehot_l) * m, dim=0)
+    tn = torch.sum(m) - tp - fp - fn
+    return tp, fp, fn, tn
+
+
+def precision_recall_fbeta(logits, labels, num_classes: int, mask=None,
+                           beta: float = 1.0, average: str = "macro"):
+    """(precision, recall, F-beta) of ``argmax(logits)``: ``"macro"``
+    averages the per-class scores, ``"micro"`` scores the summed counts;
+    every denominator is floored at 1e-12."""
+    tp, fp, fn, _ = confusion_counts(torch.argmax(logits, dim=-1), labels,
+                                     num_classes, mask)
+    if average == "micro":
+        tp, fp, fn = torch.sum(tp), torch.sum(fp), torch.sum(fn)
+    prec = tp / torch.clamp_min(tp + fp, 1e-12)
+    rec = tp / torch.clamp_min(tp + fn, 1e-12)
+    b2 = beta * beta
+    f = (1 + b2) * prec * rec / torch.clamp_min(b2 * prec + rec, 1e-12)
+    if average == "macro":
+        prec, rec, f = prec.mean(), rec.mean(), f.mean()
+    return prec, rec, f
