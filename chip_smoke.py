@@ -127,6 +127,20 @@ must reach test_acc >= 0.80 with exact launch counts.
                costliest kernels (``torch.profiler``); the sparse
                model's logits within ``GTN_DENSE_SPARSE`` of the dense
                model's at 4,637 nodes.
+ 17. embed   — the walk embedders (no kernel, as in JAX): the nine CLI
+               runs of ``EMBED_RUNS`` at the reference's defaults (DeepWalk,
+               Node2vec and MetaPath2Vec also with ``device_walks=true``,
+               Struc2Vec, LINE, SDNE) with the launch counts set to 0
+               before each and read after: no kernel may launch, the loss
+               must fall and the embedding be [V, 128]; each run's host
+               seconds (walks, Struc2Vec layers, corpus), steps/s and
+               epochs/s, and ms per step of its device loop captured and
+               eager (wall, replays behind a sleep kernel, profiler kernel
+               time); one step of SkipGram, LINE and SDNE card vs CPU
+               (the loss, every gradient and every parameter after the
+               step within ``EMBED_TOL``); DeepWalk's and SDNE's captured
+               epochs bit-equal to eager ones; DeepWalk, LINE and SDNE at
+               2,405 nodes (``WIKI_NODES``) through the ``run_*`` API.
 Then a ``previous_design`` line (every K2-K10 case beside its previous
 design's time where ``PREVIOUS_DESIGN_MS`` records one, not measured
 here), a ``kernels`` summary line (K1-K10 and the two row-sum kernels,
@@ -183,7 +197,12 @@ from graphneuralnetwork_tpu_torch.ops.cuda.counters import (COUNTERS,
 from graphneuralnetwork_tpu_torch.sampling import (csr_from_edges,
                                                    multihop_sampling)
 from graphneuralnetwork_tpu_torch.tools import bench_dma, profile_attend
-from graphneuralnetwork_tpu_torch.tools.timing import time_ms
+from graphneuralnetwork_tpu_torch.tools.timing import kernel_ms, time_ms
+from graphneuralnetwork_tpu_torch.data.edgelist import (load_edgelist,
+                                                        synthetic_smallworld)
+from graphneuralnetwork_tpu_torch.models import embedding
+from graphneuralnetwork_tpu_torch.nn.embed import LINE, SkipGram
+from graphneuralnetwork_tpu_torch.train import embed_loop
 from graphneuralnetwork_tpu_torch.train import sage_loop
 from graphneuralnetwork_tpu_torch.train.gtn_loop import (GTNBlock,
                                                          create_gtn_state,
@@ -2316,6 +2335,339 @@ def phase_sage_sampled() -> dict:
     return runs
 
 
+#: The walk embedders' CLI runs: the reference's defaults on the 500-node
+#: synthetic small world (MetaPath2Vec: the 350-node user-item graph),
+#: walks drawn on the device where JAX can draw them
+EMBED_RUNS = {
+    "deepwalk": ["--model", "deepwalk"],
+    "deepwalk_device_walks": ["--model", "deepwalk", "--set",
+                              "device_walks=true"],
+    "node2vec": ["--model", "node2vec"],
+    "node2vec_device_walks": ["--model", "node2vec", "--set",
+                              "device_walks=true"],
+    "struc2vec": ["--model", "struc2vec"],
+    "line": ["--model", "line"],
+    "sdne": ["--model", "sdne"],
+    "metapath2vec": ["--model", "metapath2vec"],
+    "metapath2vec_device_walks": ["--model", "metapath2vec", "--set",
+                                  "device_walks=true"],
+}
+#: The Wiki edge list's node count, the graph of the reference's LINE and
+#: SDNE runs (BASELINE.md:28-29), as a synthetic small world of degree 14
+#: each way: 33,670 directed edges
+WIKI_NODES, WIKI_K = 2405, 14
+#: Steps in a window of eager steps or replays timed (``_step_times``),
+#: and in a profiled window
+EMBED_WINDOW, EMBED_PROFILED = 100, 20
+#: One training step card vs CPU from the same weights and batch: the loss,
+#: every parameter's gradient and every parameter after the step within
+#: this share of its largest entry (float32 sums in other orders; the
+#: gradients hold the backward to its size, as Adam's first step is
+#: ~lr·sign(g))
+EMBED_TOL = 1e-5
+
+
+class _EmbedTimes:
+    """Host seconds of an embedder run by part (the walks and their
+    tables, the Struc2Vec layers, the corpus) and each device-loop epoch's
+    wall seconds and steps, from wrappers around
+    ``models/embedding.py``'s builders and ``CapturedEpochs.run`` (whose
+    host read ends the epoch); it keeps the last loop and the last corpus
+    handed to ``train_skipgram``."""
+
+    PARTS = {"walks": ("uniform_walks", "metapath_walks", "_device_walks",
+                       "build_node2vec_tables", "build_metapath_tables",
+                       "build_device_neighbor_table"),
+             "layers": ("build_multilayer_graph",),
+             "corpus": ("skipgram_dataset", "line_corpus", "pagerank")}
+    METHODS = ((embedding.Node2VecWalker, "__init__"),
+               (embedding.Node2VecWalker, "walk"),
+               (embedding.Struc2VecWalker, "__init__"),
+               (embedding.Struc2VecWalker, "walk"))
+
+    def __init__(self):
+        self.host = {part: 0.0 for part in self.PARTS}
+        self.epochs, self.steps = [], 0
+        self.loop, self.arrays = None, None
+        self.saved = []
+
+    def _timer(self, part, fn):
+        def timed(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            self.host[part] += time.perf_counter() - t
+            return out
+        return timed
+
+    def __enter__(self):
+        patches = [(embedding, name, self._timer(part,
+                                                 getattr(embedding, name)))
+                   for part, names in self.PARTS.items() for name in names]
+        patches += [(cls, name, self._timer("walks", getattr(cls, name)))
+                    for cls, name in self.METHODS]
+        run, train = embed_loop.CapturedEpochs.run, embedding.train_skipgram
+
+        def timed_run(loop):
+            t = time.perf_counter()
+            rows = run(loop)
+            self.epochs.append(time.perf_counter() - t)
+            self.steps += loop.nb
+            self.loop = loop
+            return rows
+
+        def keep_corpus(model, arrays, **kw):
+            self.arrays = tuple(arrays) + tuple(
+                kw.get("extra_batch_arrays", ()))
+            return train(model, arrays, **kw)
+
+        patches += [(embed_loop.CapturedEpochs, "run", timed_run),
+                    (embedding, "train_skipgram", keep_corpus)]
+        self.saved = [(obj, name, getattr(obj, name))
+                      for obj, name, _ in patches]
+        for obj, name, value in patches:
+            setattr(obj, name, value)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in reversed(self.saved):
+            setattr(obj, name, value)
+
+    def report(self) -> dict:
+        train_s = sum(self.epochs)
+        n = len(self.epochs)
+        per = self.steps / max(n, 1)
+        return {"host_s": dict(self.host), "epochs": n,
+                "steps_per_epoch": per, "train_s": train_s,
+                "first_epoch_ms": self.epochs[0] * 1e3 if n else None,
+                "steps_per_s": self.steps / train_s if n else None,
+                "epochs_per_s": n / train_s if n else None,
+                "steady_steps_per_s": ((n - 1) * per / sum(self.epochs[1:])
+                                       if n > 1 else None)}
+
+
+def _step_times(loop) -> dict:
+    """ms per step of a trained device loop:
+    a captured epoch's wall time (host clock, ending in its host read),
+    ``EMBED_WINDOW`` eager steps' wall time, as many replays back to back
+    behind a sleep kernel (``time_ms``), the kernel time per step of
+    ``EMBED_PROFILED`` replayed and eager steps (profiler) and a replayed
+    step's costliest kernels."""
+    nb = loop.nb
+    window, profiled = min(nb, EMBED_WINDOW), min(nb, EMBED_PROFILED)
+
+    def replays(n):
+        def run():
+            loop.index.zero_()
+            for _ in range(n):
+                loop.graph.replay()
+        return run
+
+    def eager(n):
+        def run():
+            loop.index.zero_()
+            loop.steps(n)
+        return run
+
+    out = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loop.run()
+    out["captured_wall_ms"] = (time.perf_counter() - t) * 1e3 / nb
+    t = time.perf_counter()
+    eager(window)()
+    torch.cuda.synchronize()
+    out["eager_wall_ms"] = (time.perf_counter() - t) * 1e3 / window
+    out["captured_device_ms"] = time_ms(replays(window), reps=3,
+                                        batch=1) / window
+    total, top = kernel_ms(replays(profiled), top=4)
+    out["captured_kernel_ms"] = total / profiled
+    out["eager_kernel_ms"] = kernel_ms(eager(profiled)) / profiled
+    out["captured_wall_over_device"] = (out["captured_wall_ms"]
+                                        / out["captured_device_ms"])
+    out["top_kernels_ms"] = {k: v / profiled for k, v in top.items()}
+    return out
+
+
+def _embed_run(name, run, steps=True) -> tuple[dict, _EmbedTimes]:
+    """``run()`` (a CLI run or a ``run_*`` call) under ``_EmbedTimes`` with
+    the launch counts set to 0 just before and read just after: no kernel
+    of the port may launch, the loss must fall (REPRO.md:14-19) and the
+    embedding be [V, 128]; then, with ``steps``, the step times of its
+    device loop."""
+    reset_launches()
+    with _EmbedTimes() as times:
+        t = time.perf_counter()
+        loss0, loss1, shape = run()
+        seconds = time.perf_counter() - t
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"embed {name}: kernels launched {launches}")
+    if not (np.isfinite([loss0, loss1]).all() and loss1 < loss0
+            and shape[1] == 128):
+        raise AssertionError(f"embed {name}: loss {loss0} -> {loss1}, "
+                             f"embedding {shape}")
+    res = {"run": name, "initial_loss": loss0, "final_loss": loss1,
+           "embed_shape": list(shape), "seconds": seconds, "launches": 0,
+           **times.report()}
+    if steps:
+        res["step_ms"] = _step_times(times.loop)
+    emit({"phase": "embed", **res})
+    return res, times
+
+
+def _cli_embed(argv):
+    res = cli_main(argv + ["--device", DEVICE, "--quiet"])
+    return res["initial_loss"], res["final_loss"], res["embed_shape"]
+
+
+def _api_embed(fn, data, cfg):
+    emb, history = fn(data, cfg, device=DEVICE)
+    return history[0][1], history[-1][1], emb.shape
+
+
+def _state_errs(got: torch.nn.Module, want: torch.nn.Module) -> dict:
+    """Each parameter's gradient (of the step just taken: the next step
+    clears it) and value, ``got`` against ``want``."""
+    grads = dict(want.named_parameters())
+    return {**{f"grad_{k}": _rel_err(p.grad, grads[k].grad)
+               for k, p in got.named_parameters()},
+            **{k: _rel_err(a, want.state_dict()[k])
+               for k, a in got.state_dict().items()}}
+
+
+def _embed_card_vs_cpu(deepwalk_corpus, line_corpus) -> dict:
+    """One training step of SkipGram (a batch of DeepWalk's corpus: 256 x
+    60), LINE (32 rows of its corpus and PageRank weights) and SDNE (32
+    adjacency rows of the 500-node graph, hidden 256, 128) on the card
+    and on the CPU from the same weights: the loss, every parameter's
+    gradient and every parameter after the step within ``EMBED_TOL`` of
+    their scale."""
+    out = {}
+    cases = {"skipgram": (lambda: SkipGram(500, 128), deepwalk_corpus, 256,
+                          embed_loop.skipgram_loss),
+             "line": (lambda: LINE(500, 128), line_corpus, 32,
+                      embed_loop.line_loss)}
+    for name, (make, arrays, bs, loss_fn) in cases.items():
+        losses, models = [], []
+        ref = make()
+        ref.reset_parameters(torch.Generator().manual_seed(1))
+        for device in ("cpu", DEVICE):
+            model = make()
+            model.load_state_dict(ref.state_dict())
+            model.to(device)
+            device = torch.device(device)
+            opt = embed_loop.make_adam(model.parameters(), 2e-3, device)
+            dev = [embed_loop._to_device(a[:bs], device) for a in arrays]
+            step = embed_loop.batch_step(model, opt, loss_fn, dev)
+            losses.append(step(torch.arange(bs, device=device))[0])
+            models.append(model)
+        out[name] = {"loss": _rel_err(losses[1], losses[0]),
+                     **_state_errs(models[1], models[0])}
+    cfg = embedding.SDNEConfig()
+    data = load_edgelist(seed=0)
+    a = torch.zeros(500, 500)
+    a[torch.from_numpy(data.senders).long(),
+      torch.from_numpy(data.receivers).long()] = torch.from_numpy(
+          data.weights)
+    losses, models = [], []
+    for device in ("cpu", DEVICE):
+        device = torch.device(device)
+        model, opt = embedding.sdne_model(500, cfg, device)
+        sel = torch.arange(32, device=device)
+        rows = a.to(device)[sel]
+        losses.append(embedding.sdne_step(model, opt, cfg, rows,
+                                          rows[:, sel]))
+        models.append(model)
+    out["sdne"] = {"loss": _rel_err(losses[1], losses[0]),
+                   **_state_errs(models[1], models[0])}
+    worst = max(max(v.values()) for v in out.values())
+    if not worst <= EMBED_TOL:
+        raise AssertionError(f"embed card vs CPU: {out}")
+    return out
+
+
+def _twin_epochs(make, label: str) -> dict:
+    """Two loops from ``make()`` (same weights, same generator seed): two
+    epochs replayed from the capture against the same two epochs stepped
+    eagerly; the rows and every parameter must be bit-equal."""
+    (cap, cap_model), (eager, eager_model) = make(), make()
+    got = [cap.run(), cap.run()]
+    want = [eager.run_eager(), eager.run_eager()]
+    rows_equal = all(np.array_equal(g, w) for g, w in zip(got, want))
+    differ = [k for k, v in cap_model.state_dict().items()
+              if not torch.equal(v, eager_model.state_dict()[k])]
+    if not rows_equal or differ:
+        raise AssertionError(f"embed {label}: captured vs eager rows equal "
+                             f"{rows_equal}, parameters that differ {differ}")
+    return {"bit_equal": True, "steps_per_epoch": cap.nb,
+            "losses": [float(r[:, 0].mean()) for r in got]}
+
+
+def _skipgram_loop(arrays):
+    def make():
+        model = SkipGram(500, 128)
+        embed_loop._init_params(model, 0)
+        model.to(DEVICE)
+        device = torch.device(DEVICE)
+        opt = embed_loop.make_adam(model.parameters(), 2e-3, device)
+        return (embed_loop.skipgram_epochs(
+            model, opt, embed_loop.skipgram_loss, arrays, 256, 0,
+            device), model)
+    return make
+
+
+def _sdne_loop():
+    data = load_edgelist(seed=0)
+    a = np.zeros((500, 500), np.float32)
+    a[data.senders, data.receivers] = data.weights
+    a = torch.from_numpy(a).to(DEVICE)
+    cfg = embedding.SDNEConfig()
+
+    def make():
+        model, opt = embedding.sdne_model(500, cfg, torch.device(DEVICE))
+        return embedding.sdne_epochs(model, opt, cfg, a), model
+    return make
+
+
+def phase_embed() -> list[dict]:
+    """The walk embedders (no kernel of the port, as in JAX): the nine CLI
+    runs of ``EMBED_RUNS`` (``_embed_run``: zero launches, the loss falls,
+    [V, 128]; host seconds by part, steps/s and epochs/s, step ms
+    captured and eager); one step of SkipGram, LINE and SDNE card vs CPU
+    (``EMBED_TOL``); DeepWalk's and SDNE's captured epochs bit-equal to
+    eager ones; DeepWalk, LINE and SDNE at
+    the Wiki edge list's 2,405 nodes through the ``run_*`` API. Every
+    kernel counter reads 0 across the phase."""
+    t0 = time.perf_counter()
+    reset_launches()
+    runs, corpora = {}, {}
+    for name, argv in EMBED_RUNS.items():
+        # a device_walks run trains the same steps as its host-walk twin
+        runs[name], times = _embed_run(name, lambda a=argv: _cli_embed(a),
+                                       steps="device_walks" not in name)
+        corpora[name] = times.arrays
+    checks = {"card_vs_cpu": _embed_card_vs_cpu(corpora["deepwalk"],
+                                                corpora["line"]),
+              "deepwalk_captured_vs_eager": _twin_epochs(
+                  _skipgram_loop(corpora["deepwalk"]), "deepwalk"),
+              "sdne_captured_vs_eager": _twin_epochs(_sdne_loop(), "sdne")}
+    emit({"phase": "embed", "tolerance": EMBED_TOL, **checks})
+    wiki = synthetic_smallworld(n_nodes=WIKI_NODES, k=WIKI_K, seed=0)
+    for name, fn, cfg in (
+            ("deepwalk_2405", embedding.run_deepwalk,
+             embedding.WalkEmbedConfig()),
+            ("line_2405", embedding.run_line, embedding.LINEConfig()),
+            ("sdne_2405", embedding.run_sdne, embedding.SDNEConfig())):
+        runs[name], _ = _embed_run(name, lambda f=fn, c=cfg: _api_embed(
+            f, wiki, c))
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"embed: kernels launched {launches}")
+    emit({"phase": "embed", "edges_2405": len(wiki.senders),
+          "launches": launches, "seconds": time.perf_counter() - t0})
+    return runs
+
+
 #: name, source, TPU kernel replaced, and which float32 case the summary
 #: times (GCN's first layer for K1 and for K3 on the Cora hybrid; GAT's 8
 #: heads for K2; the first GAT layer of a training step for K4-K6 and
@@ -2515,6 +2867,7 @@ def main() -> None:
     row_sum, row_sum_launches = phase_row_sum()
     runs.append(row_sum_launches)
     phase_sage_sampled()
+    phase_embed()
     emit(previous_design(cases))
     launches = {k: sum(run[k] for run in runs) for k in COUNTERS}
     line = summary(cases, launches, floor_ms)

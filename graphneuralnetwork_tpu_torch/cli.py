@@ -33,7 +33,14 @@ AdamW at 2.5e-3 for the ``gt*`` layers and 5e-3 for the rest, weight decay
 edge-type stack (``--dataset imdb``: the synthetic IMDB; a path: a
 ``train.pkl`` or an ACM.mat): ``auto``/``coo`` the dense model (matrix
 products, no kernel), ``--layout sparse`` the wedge-plan ``SparseGTN``
-(K1). Prints one JSON line.
+(K1). ``--model deepwalk|node2vec|struc2vec|line|sdne|metapath2vec``
+trains the walk embedders (``models/embedding.py``, plain PyTorch, no
+kernel; the skip-gram or SDNE epoch captured as a CUDA graph on the card)
+at the reference's defaults on the 500-node synthetic small-world graph
+(``--dataset``: an edge-list file; metapath2vec: the synthetic user-item
+graph only), ``--set`` over any field of the model's config
+(``device_walks=true`` draws DeepWalk's, Node2vec's and MetaPath2Vec's
+walks on the device). Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -47,10 +54,26 @@ import json
 _SAGE_FIELDS = ("fanouts", "hidden", "batch_size", "lr", "weight_decay",
                 "epochs", "aggregator", "optimizer", "seed", "num_negatives",
                 "walk_length", "device_sampling", "max_table_degree")
+_WALK_FIELDS = ("num_walks", "walk_length", "window", "num_negatives",
+                "embed_dim", "lr", "batch_size", "epochs", "seed", "p", "q",
+                "subsample_t", "device_walks")
 _SET_KEYS = {"graphsage_hybrid": ("aggregator", "lr"),
              "graphsage": _SAGE_FIELDS, "graphsage_unsup": _SAGE_FIELDS,
              "han": ("n_papers",),
-             "han_batch": ("batch_size", "lr", "patience")}
+             "han_batch": ("batch_size", "lr", "patience"),
+             "deepwalk": _WALK_FIELDS, "node2vec": _WALK_FIELDS,
+             "metapath2vec": _WALK_FIELDS,
+             # struc2vec draws its walks on the host only
+             "struc2vec": tuple(f for f in _WALK_FIELDS
+                                if f != "device_walks"),
+             "line": ("embed_dim", "num_negatives", "batch_size", "lr",
+                      "epochs", "seed"),
+             "sdne": ("hidden_dims", "alpha", "beta", "weight_decay",
+                      "batch_size", "lr", "epochs", "seed")}
+_EMBEDDERS = ("deepwalk", "node2vec", "struc2vec", "line", "sdne",
+              "metapath2vec")
+#: The JAX CLI's models that the port does not train yet
+_NOT_PORTED = ("gatne", "bine")
 
 
 def _apply_overrides(cfg, overrides):
@@ -75,15 +98,17 @@ def _apply_overrides(cfg, overrides):
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(
         description="PyTorch/CUDA GNN trainer (GCN, GAT, GraphSAGE, HAN, "
-                    "GTN)")
+                    "GTN, the walk embedders)")
     ap.add_argument("--model", required=True,
                     choices=["gcn", "gat", "graphsage", "graphsage_unsup",
-                             "han", "han_batch", "gtn"])
+                             "han", "han_batch", "gtn", *_EMBEDDERS,
+                             *_NOT_PORTED])
     ap.add_argument("--dataset", default=None,
                     help="dataset path or 'cora'/'citeseer' (falls back to "
                          "the synthetic graph of that shape); han and "
                          "han_batch: an ACM.mat path or 'imdb'; gtn: a "
-                         "train.pkl or ACM.mat path or 'imdb'")
+                         "train.pkl or ACM.mat path or 'imdb'; the walk "
+                         "embedders but metapath2vec: an edge-list file")
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--set", action="append", metavar="KEY=VALUE",
@@ -92,7 +117,9 @@ def main(argv=None) -> dict:
                          "graphsage_unsup: any SageConfig field, e.g. "
                          "fanouts=10,10, aggregator=max, "
                          "device_sampling=true; han: n_papers=<int>; "
-                         "han_batch: batch_size, lr, patience")
+                         "han_batch: batch_size, lr, patience; the walk "
+                         "embedders: any field of their config, e.g. "
+                         "num_walks=10, device_walks=true")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--resume", action="store_true",
                     help="load a prior checkpoint before training")
@@ -117,6 +144,9 @@ def main(argv=None) -> dict:
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
     name = args.model
+    if name in _NOT_PORTED:
+        ap.error(f"--model {name} is not ported to PyTorch yet (the JAX "
+                 "package's CLI trains it)")
     if any("=" not in kv for kv in args.set or []):
         ap.error("--set takes KEY=VALUE")
     overrides = dict(kv.split("=", 1) for kv in (args.set or []))
@@ -139,6 +169,12 @@ def main(argv=None) -> dict:
         return _han(name, args, overrides)
     if name == "gtn":
         return _gtn(args)
+    if name in _EMBEDDERS:
+        if name == "metapath2vec" and args.dataset is not None:
+            ap.error("--model metapath2vec --dataset (the JData pipeline) "
+                     "is not ported yet; without --dataset it trains on the "
+                     "synthetic user-item graph")
+        return _embed(name, args)
 
     import torch
 
@@ -343,6 +379,43 @@ def _gtn(args) -> dict:
     if res.steady_epochs_per_s is not None:
         result["steady_epochs_per_s"] = res.steady_epochs_per_s
     print(json.dumps({"model": "gtn", "layout": args.layout, **result}))
+    return result
+
+
+def _embed(name, args) -> dict:
+    """A walk embedder at the reference's defaults (``models/embedding.py``):
+    JAX's ``final_loss``, ``initial_loss`` and ``embed_shape``, with the
+    run's ``epochs`` and ``seconds`` (walks and corpus included)."""
+    import time
+
+    from .core.device import resolve_device
+    from .data.edgelist import load_edgelist
+    from .models import embedding
+
+    device = resolve_device(args.device)
+    t0 = time.perf_counter()
+    if name == "metapath2vec":
+        cfg = _apply_overrides(embedding.WalkEmbedConfig(
+            window=4, num_negatives=4, batch_size=512,
+            epochs=args.epochs or 5, seed=args.seed), args.set)
+        emb, history = embedding.run_metapath2vec(cfg=cfg, device=device)
+    else:
+        data = load_edgelist(path=args.dataset, seed=args.seed)
+        config = {"line": embedding.LINEConfig,
+                  "sdne": embedding.SDNEConfig}.get(
+                      name, embedding.WalkEmbedConfig)
+        cfg = _apply_overrides(config(
+            epochs=args.epochs or (10 if name == "sdne" else 5),
+            seed=args.seed), args.set)
+        run = getattr(embedding, f"run_{name}")
+        emb, history = run(data, cfg, device=device)
+    result = dict(final_loss=history[-1][1], initial_loss=history[0][1],
+                  embed_shape=list(emb.shape), epochs=len(history),
+                  seconds=time.perf_counter() - t0, device=str(device))
+    if not args.quiet:
+        for row in history:
+            print(f"epoch {row[0]}: loss {row[1]:.4f}")
+    print(json.dumps({"model": name, **result}))
     return result
 
 

@@ -1,8 +1,10 @@
 """Alias-method O(1) weighted sampling (numpy).
 
-Port of ``build_alias_table`` and ``sample_alias`` from
-``graphneuralnetwork_tpu/sampling/alias.py``, which ``NegativeSampler``
-draws with; the same inputs and ``rng`` give the same tables and draws.
+Port of ``build_alias_table``, ``sample_alias`` and ``ConcatAliasTables``
+from ``graphneuralnetwork_tpu/sampling/alias.py``: ``NegativeSampler``
+draws with the first two, the weighted, node2vec and struc2vec walkers
+with the packed tables. The same inputs and ``rng`` give the same tables
+and draws.
 """
 
 from __future__ import annotations
@@ -40,3 +42,34 @@ def sample_alias(accept, alias, rng: np.random.Generator, size):
     i = rng.integers(0, n, size)
     keep = rng.random(size) < accept[i]
     return np.where(keep, i, alias[i])
+
+
+class ConcatAliasTables:
+    """Many alias tables packed into flat arrays: table t occupies
+    ``[offsets[t], offsets[t + 1])`` of ``accept`` and ``alias``."""
+
+    def __init__(self, tables: list[np.ndarray]):
+        self.sizes = np.array([len(t) for t in tables], np.int64)
+        self.offsets = np.concatenate([[0], np.cumsum(self.sizes)])
+        accepts, aliases = [], []
+        for t in tables:
+            a, al = build_alias_table(t) if len(t) else (
+                np.zeros(0, np.float32), np.zeros(0, np.int32))
+            accepts.append(a)
+            aliases.append(al)
+        self.accept = (np.concatenate(accepts) if accepts
+                       else np.zeros(0, np.float32))
+        self.alias = (np.concatenate(aliases) if aliases
+                      else np.zeros(0, np.int32))
+
+    def draw(self, t_idx: np.ndarray, rng: np.random.Generator):
+        """One local index in each table of ``t_idx`` (tables must be
+        non-empty): a uniform slot, kept with its ``accept`` probability,
+        else its alias."""
+        t_idx = np.asarray(t_idx, np.int64)
+        sz = self.sizes[t_idx]
+        base = self.offsets[t_idx]
+        i = (rng.random(len(t_idx)) * sz).astype(np.int64)
+        g = base + i
+        keep = rng.random(len(t_idx)) < self.accept[g]
+        return np.where(keep, i, self.alias[g])

@@ -1,9 +1,11 @@
-"""CSR construction and uniform random walks on the host (numpy).
+"""CSR construction and random walks on the host (numpy).
 
-Port of ``csr_from_edges`` and the numpy path of ``uniform_walks`` from
+Port of ``csr_from_edges``, the numpy path of ``uniform_walks``,
+``weighted_walks``, ``Node2VecWalker`` and ``metapath_walks`` from
 ``graphneuralnetwork_tpu/sampling/walks.py``: every walker advances in
 lock-step with vectorised draws, so a [n_walks, length] walk matrix takes
-O(length) numpy steps. The JAX package prefers its C++ engine
+O(length) numpy steps. The same inputs and ``rng`` give JAX's walks draw
+for draw. The JAX package prefers its C++ engine
 (``sampling/native.py``), whose draws come from another generator; the
 port has no native engine yet, so its walks are those of the JAX function
 with ``use_native=False``, draw for draw from the same ``rng``, except
@@ -16,10 +18,11 @@ CSR convention: ``(indptr, indices)`` with the neighbours of node v at
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
+from .alias import ConcatAliasTables
 from .neighbor import _take
 
 
@@ -53,5 +56,123 @@ def uniform_walks(indptr, indices, starts, length: int,
         off = (rng.random(n) * np.maximum(d, 1)).astype(np.int64)
         nxt = _take(indices, indptr[cur] + off)
         cur = np.where(alive, nxt, cur)
+        walks[:, t] = cur
+    return walks
+
+
+def weighted_walks(indptr, indices, weights, starts, length: int,
+                   rng: np.random.Generator) -> np.ndarray:
+    """[n_starts, length] int32 walks biased by edge weight (one alias
+    table a node); a walker at a node without neighbours stays there."""
+    n_nodes = len(indptr) - 1
+    cat = ConcatAliasTables([weights[indptr[v]:indptr[v + 1]]
+                             for v in range(n_nodes)])
+    starts = np.asarray(starts, np.int64)
+    n = len(starts)
+    walks = np.empty((n, length), np.int32)
+    cur = starts.copy()
+    walks[:, 0] = cur
+    deg = indptr[1:] - indptr[:-1]
+    for t in range(1, length):
+        alive = deg[cur] > 0
+        safe = np.where(alive, cur, 0)
+        local = cat.draw(safe, rng)
+        nxt = _take(indices, indptr[safe] + local)
+        cur = np.where(alive, nxt, cur)
+        walks[:, t] = cur
+    return walks
+
+
+class Node2VecWalker:
+    """p/q-biased second-order walks over per-edge alias tables.
+
+    The first hop draws from the node's edge weights; after the edge
+    (u -> v) the next hop draws over v's neighbours x with weight w(v, x)
+    times 1/p if x == u, 1 if x is a neighbour of u, 1/q otherwise. A
+    walker at a dead end repeats its node from then on."""
+
+    def __init__(self, indptr, indices, p: float = 1.0, q: float = 1.0,
+                 weights=None):
+        self.indptr, self.indices = indptr, indices
+        n_nodes = len(indptr) - 1
+        w = (np.ones(len(indices), np.float32) if weights is None
+             else np.asarray(weights, np.float32))
+        neigh_sets = [set(indices[indptr[v]:indptr[v + 1]].tolist())
+                      for v in range(n_nodes)]
+        self.node_tables = ConcatAliasTables(
+            [w[indptr[v]:indptr[v + 1]] for v in range(n_nodes)])
+        # one table per directed edge position e (src_of[e] -> indices[e])
+        src_of = np.repeat(np.arange(n_nodes),
+                           indptr[1:] - indptr[:-1]).astype(np.int64)
+        tables = []
+        for e in range(len(indices)):
+            u, v = int(src_of[e]), int(indices[e])
+            nbrs = indices[indptr[v]:indptr[v + 1]]
+            ww = w[indptr[v]:indptr[v + 1]].copy()
+            for k, x in enumerate(nbrs):
+                if x == u:
+                    ww[k] /= p
+                elif int(x) not in neigh_sets[u]:
+                    ww[k] /= q
+            tables.append(ww)
+        self.edge_tables = ConcatAliasTables(tables)
+
+    def walk(self, starts, length: int, rng: np.random.Generator):
+        """[n_starts, length] int32 walks."""
+        indptr, indices = self.indptr, self.indices
+        starts = np.asarray(starts, np.int64)
+        n = len(starts)
+        deg = indptr[1:] - indptr[:-1]
+        walks = np.empty((n, length), np.int32)
+        cur = starts.copy()
+        walks[:, 0] = cur
+        if length == 1:
+            return walks
+        # first hop: the node's table
+        alive = deg[cur] > 0
+        safe = np.where(alive, cur, 0)
+        local = self.node_tables.draw(safe, rng)
+        edge_pos = indptr[safe] + local            # directed edge index
+        nxt = _take(indices, edge_pos)
+        cur = np.where(alive, nxt, cur)
+        walks[:, 1] = cur
+        for t in range(2, length):
+            alive = alive & (deg[cur] > 0)
+            safe_edge = np.where(alive, edge_pos, 0)
+            local = self.edge_tables.draw(safe_edge, rng)
+            new_edge = indptr[np.where(alive, cur, 0)] + local
+            nxt = _take(indices, new_edge)
+            edge_pos = np.where(alive, new_edge, edge_pos)
+            cur = np.where(alive, nxt, cur)
+            walks[:, t] = cur
+        return walks
+
+
+def metapath_walks(hetero, metapath: Sequence[Tuple[str, str, str]],
+                   starts: np.ndarray, length: int,
+                   rng: np.random.Generator) -> np.ndarray:
+    """[n_starts, length] int32 walks whose step t follows relation
+    ``metapath[(t - 1) % len(metapath)]`` of ``hetero``, in per-type local
+    ids; a walker without a next hop stays where it is from then on."""
+    csr: Dict[Tuple[str, str, str], tuple] = {}
+    for key in metapath:
+        s, d, _ = hetero.relations[key]
+        csr[key] = csr_from_edges(s, d, hetero.node_counts[key[0]])
+    starts = np.asarray(starts, np.int64)
+    n = len(starts)
+    walks = np.empty((n, length), np.int32)
+    cur = starts.copy()
+    walks[:, 0] = cur
+    alive = np.ones(n, bool)
+    for t in range(1, length):
+        indptr, indices, _ = csr[metapath[(t - 1) % len(metapath)]]
+        deg = indptr[1:] - indptr[:-1]
+        safe = np.where(alive, cur, 0)
+        d = deg[safe]
+        step_alive = alive & (d > 0)
+        off = (rng.random(n) * np.maximum(d, 1)).astype(np.int64)
+        nxt = _take(indices, indptr[safe] + off)
+        cur = np.where(step_alive, nxt, cur)
+        alive = step_alive
         walks[:, t] = cur
     return walks

@@ -1,7 +1,9 @@
-"""Device time of one call on the card, by CUDA events."""
+"""Device time of one call on the card: by CUDA events (``time_ms``) and
+by the profiler's kernel durations (``kernel_ms``)."""
 
 from __future__ import annotations
 
+import collections
 import statistics
 
 import torch
@@ -26,3 +28,24 @@ def time_ms(fn, reps: int = 7, batch: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
+
+
+def kernel_ms(fn, top: int = 0):
+    """The device time of one call of ``fn``: its kernels' (and copies')
+    durations summed by ``torch.profiler``, ms; with ``top``, also the
+    ``top`` costliest kernels' ms by name."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            by_name[e.name] += e.time_range.elapsed_us()
+    total = sum(by_name.values()) / 1e3
+    if not top:
+        return total
+    return total, {name[:80]: us / 1e3
+                   for name, us in by_name.most_common(top)}

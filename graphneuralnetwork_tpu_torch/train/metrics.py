@@ -1,8 +1,10 @@
-"""Classification metrics (port of the node-classification, binary-logit
-and precision/recall parts of ``graphneuralnetwork_tpu/train/metrics.py``).
-The accuracies, the softmax loss and the precision/recall/F-beta triple
-return float32 scalars on the logits' device, so a training loop can keep
-them there; the sigmoid loss is elementwise, as optax's is."""
+"""Classification metrics (port of the node-classification, binary-logit,
+skip-gram and precision/recall parts of
+``graphneuralnetwork_tpu/train/metrics.py``). The accuracies, the
+softmax loss, the masked sigmoid loss and the precision/recall/F-beta
+triple return float32 scalars on the logits' device, so a training loop
+can keep them there; ``sigmoid_binary_cross_entropy`` is elementwise, as
+optax's is."""
 
 from __future__ import annotations
 
@@ -44,6 +46,19 @@ def sigmoid_binary_cross_entropy(logits, labels):
     labels = labels.to(logits.dtype)
     return (-labels * F.logsigmoid(logits)
             - (1.0 - labels) * F.logsigmoid(-logits))
+
+
+def masked_sigmoid_bce(logits, labels, mask=None):
+    """Binary cross-entropy on logits of padded skip-gram rows: each row's
+    mean over its valid entries (``mask``; a row without one counts 0),
+    then the mean over rows; without ``mask`` the mean of every entry."""
+    losses = sigmoid_binary_cross_entropy(logits, labels)
+    if mask is None:
+        return losses.mean()
+    m = mask.to(losses.dtype)
+    row = torch.sum(losses * m, dim=-1) / torch.clamp_min(
+        torch.sum(m, dim=-1), 1.0)
+    return row.mean()
 
 
 def confusion_counts(pred, labels, num_classes: int, mask=None):

@@ -48,13 +48,15 @@ class EpochGraph:
     """One epoch as a ``torch.cuda.CUDAGraph``, after PyTorch's recipe for
     capturing a whole network: a warm-up run on a side stream, then one
     capture (in the default error mode: a host sync raises), replayed on
-    the current stream. The dropout generator is registered with the
-    graph, so that each replay draws afresh."""
+    the current stream. The dropout generator, if any, is registered with
+    the graph, so that each replay draws afresh."""
 
-    def __init__(self, device: torch.device, generator: torch.Generator):
+    def __init__(self, device: torch.device,
+                 generator: Optional[torch.Generator] = None):
         self.device = device
         self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(generator)
+        if generator is not None:
+            self.graph.register_generator_state(generator)
 
     def warm_up(self, epoch: Callable[[], None]) -> None:
         current = torch.cuda.current_stream(self.device)
