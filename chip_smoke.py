@@ -141,6 +141,25 @@ must reach test_acc >= 0.80 with exact launch counts.
                step within ``EMBED_TOL``); DeepWalk's and SDNE's captured
                epochs bit-equal to eager ones; DeepWalk, LINE and SDNE at
                2,405 nodes (``WIKI_NODES``) through the ``run_*`` API.
+ 18. linkpred — GATNE, BiNE and the centrality toolkit (no kernel, as in
+               JAX), the counts set to 0 before each run and read after:
+               ``--model gatne`` at its defaults (5 epochs of 714 steps,
+               test F1 >= 0.60 and AUC >= 0.75, REPRO.md:20), with ``--set
+               loss=masked_bce``, ``aggregator=sum`` and ``inductive=true``
+               (the loss falls, finite metrics), each with the host
+               seconds of its neighbour tables, walks, pairs and draws, the
+               first epoch's ms, steady steps/s and epochs/s and the
+               evaluation's ms an epoch, and for the defaults and
+               ``masked_bce`` the ms per step of the device loop (captured
+               and eager; wall, replays behind a sleep kernel, profiler
+               kernel time); two captured GATNE epochs of each loss
+               bit-equal to eager ones; one step of each GATNE loss and of
+               BiNE card vs CPU (``EMBED_TOL``); ``--model bine`` at its
+               defaults (F1 >= 0.60 and AUC >= 0.75, REPRO.md:21) with the
+               host seconds of HITS, walks and side corpora and its eager
+               ms per step split into host and device; ``--model basis``
+               on the card against the CPU (``BASIS_TOL``; components,
+               degrees and diameter equal).
 Then a ``previous_design`` line (every K2-K10 case beside its previous
 design's time where ``PREVIOUS_DESIGN_MS`` records one, not measured
 here), a ``kernels`` summary line (K1-K10 and the two row-sum kernels,
@@ -199,8 +218,10 @@ from graphneuralnetwork_tpu_torch.sampling import (csr_from_edges,
 from graphneuralnetwork_tpu_torch.tools import bench_dma, profile_attend
 from graphneuralnetwork_tpu_torch.tools.timing import kernel_ms, time_ms
 from graphneuralnetwork_tpu_torch.data.edgelist import (load_edgelist,
+                                                        load_multiplex,
                                                         synthetic_smallworld)
-from graphneuralnetwork_tpu_torch.models import embedding
+from graphneuralnetwork_tpu_torch.analysis.demo import basis_demo
+from graphneuralnetwork_tpu_torch.models import bine, embedding, gatne
 from graphneuralnetwork_tpu_torch.nn.embed import LINE, SkipGram
 from graphneuralnetwork_tpu_torch.train import embed_loop
 from graphneuralnetwork_tpu_torch.train import sage_loop
@@ -2668,6 +2689,414 @@ def phase_embed() -> list[dict]:
     return runs
 
 
+#: GATNE's and BiNE's REPRO criterion on the held-out edges (REPRO.md:20-21)
+LINKPRED_F1, LINKPRED_AUC = 0.60, 0.75
+#: GATNE through the CLI: the defaults (the REPRO run), the masked-BCE loss,
+#: the sum aggregator and GATNE-I; the first two also timed by step
+GATNE_RUNS = {
+    "gatne": (["--model", "gatne"], True),
+    "gatne_masked_bce": (["--model", "gatne", "--set", "loss=masked_bce"],
+                         True),
+    "gatne_sum": (["--model", "gatne", "--set", "aggregator=sum"], False),
+    "gatne_inductive": (["--model", "gatne", "--set", "inductive=true"],
+                        False),
+}
+#: basis on the card against the port's CPU run: every float within this
+BASIS_TOL = 1e-5
+
+
+class _Parts:
+    """Host seconds of the parts of a run, by wrappers around module
+    functions (``(module, name, part)``), each call's kept by part; a
+    wrapped method of ``HostDrawnEpochs.run`` records each epoch's wall
+    seconds (its host read ends it) and keeps the last loop."""
+
+    def __init__(self, patches):
+        self.patches = patches
+        self.host = {part: 0.0 for _, _, part in patches}
+        self.each = collections.defaultdict(list)
+        self.epochs, self.loop, self.saved = [], None, []
+
+    def _timer(self, part, fn):
+        def timed(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            self.each[part].append(time.perf_counter() - t)
+            self.host[part] += self.each[part][-1]
+            return out
+        return timed
+
+    def __enter__(self):
+        run = embed_loop.HostDrawnEpochs.run
+
+        def timed_run(loop, arrays):
+            t = time.perf_counter()
+            rows = run(loop, arrays)
+            self.epochs.append(time.perf_counter() - t)
+            self.loop = loop
+            return rows
+
+        patches = [(obj, name, self._timer(part, getattr(obj, name)))
+                   for obj, name, part in self.patches]
+        patches.append((embed_loop.HostDrawnEpochs, "run", timed_run))
+        self.saved = [(obj, name, getattr(obj, name))
+                      for obj, name, _ in patches]
+        for obj, name, value in patches:
+            setattr(obj, name, value)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in reversed(self.saved):
+            setattr(obj, name, value)
+
+
+def _gatne_parts() -> _Parts:
+    return _Parts([(gatne, "build_neighbor_tables", "neighbors"),
+                   (gatne, "_generate_walks", "walks"),
+                   (gatne, "generate_pairs", "pairs"),
+                   (gatne, "generate_padded_pairs", "pairs"),
+                   (gatne._Batches, "epoch", "draws"),
+                   (gatne, "evaluate_gatne", "eval")])
+
+
+def _linkpred_ok(name, res) -> None:
+    m = res["test_metrics"]
+    if not (np.isfinite(list(m.values())).all()
+            and res["final_loss"] < res["initial_loss"]):
+        raise AssertionError(f"linkpred {name}: loss {res['initial_loss']} "
+                             f"-> {res['final_loss']}, metrics {m}")
+
+
+def _gatne_run(name, argv, steps) -> dict:
+    """One GATNE CLI run with the launch counts set to 0 just before and
+    read just after (no kernel may launch), the loss falling and finite
+    metrics; host seconds by part, each epoch's wall time, the evaluation's
+    ms an epoch, and with ``steps`` the device loop's ms per step."""
+    reset_launches()
+    with _gatne_parts() as parts:
+        t = time.perf_counter()
+        res = cli_main(argv + ["--device", DEVICE, "--quiet"])
+        seconds = time.perf_counter() - t
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"linkpred {name}: kernels launched {launches}")
+    _linkpred_ok(name, res)
+    loop = parts.loop.loop
+    host = dict(parts.host)
+    host["pairs"] -= host["walks"]      # the pair functions draw the walks
+    n = len(parts.epochs)
+    # an epoch: the host's draws, the device loop (one copy, the replays,
+    # the loss read) and the validation evaluation
+    whole = [sum(t) for t in zip(parts.each["draws"], parts.epochs,
+                                 parts.each["eval"])]
+    out = {"run": name, "seconds": seconds, "launches": 0,
+           "initial_loss": res["initial_loss"],
+           "final_loss": res["final_loss"],
+           "test_metrics": res["test_metrics"], "host_s": host,
+           "draws_ms_per_epoch": host["draws"] * 1e3 / n,
+           "eval_ms_per_epoch": np.mean(parts.each["eval"]) * 1e3,
+           "epochs": n, "steps_per_epoch": loop.nb,
+           "first_epoch_ms": whole[0] * 1e3,
+           "first_loop_ms": parts.epochs[0] * 1e3,
+           "steady_loop_steps_per_s": ((n - 1) * loop.nb
+                                       / sum(parts.epochs[1:])),
+           "steady_steps_per_s": (n - 1) * loop.nb / sum(whole[1:]),
+           "steady_epochs_per_s": (n - 1) / sum(whole[1:])}
+    if steps:
+        out["step_ms"] = _step_times(loop)
+    emit({"phase": "linkpred", **out})
+    return out
+
+
+def _gatne_pair(cfg, device, init_state, batch):
+    """GATNE's parameters from ``init_state`` on ``device``, its optimizer
+    and one step on ``batch``; returns (params, loss)."""
+    device = torch.device(device)
+    data = load_multiplex(seed=0)
+    params, opt = gatne.gatne_model(data, cfg, device)
+    params.load_state_dict(init_state)
+    nb_tab = torch.from_numpy(gatne.build_neighbor_tables(
+        data, cfg.neighbor_samples, np.random.default_rng(0))).to(device)
+    fn = gatne.masked_bce if cfg.loss == "masked_bce" else gatne.nsloss
+    step = gatne.make_step(params, opt, fn, nb_tab)
+    loss = step(*(embed_loop._to_device(a, device) for a in batch))
+    return params, loss
+
+
+#: Adam's ``eps`` (optax's default, ``embed_loop.make_adam``)
+ADAM_EPS = 1e-8
+
+
+def _first_step_bound(g_a, g_b, lr) -> torch.Tensor:
+    """Per entry, how far two first Adam steps from one value can land
+    apart given their gradients ``g_a`` and ``g_b``: the step is ``lr · g
+    / (|g| + eps)``, so ``lr · |g_a - g_b|`` times its steepest slope
+    between them, ``eps / (min |g| + eps)^2`` (``1 / eps`` if their signs
+    differ), and never more than ``2 lr``."""
+    g_a, g_b = g_a.double().cpu(), g_b.double().cpu()
+    low = torch.minimum(g_a.abs(), g_b.abs())
+    slope = torch.where(torch.sign(g_a) == torch.sign(g_b),
+                        ADAM_EPS / (low + ADAM_EPS) ** 2, 1.0 / ADAM_EPS)
+    return torch.clamp_max(lr * (g_a - g_b).abs() * slope, 2.0 * lr)
+
+
+def _gatne_card_vs_cpu(loss) -> dict:
+    """One step of GATNE's ``loss`` (the defaults' first batch) on the card
+    and on the CPU from the same initial values: the loss and every
+    gradient within ``EMBED_TOL`` of their scale; the card's optimizer
+    applied to the CPU's gradients within ``EMBED_TOL`` of the CPU's
+    parameters; and each entry of the card's parameters after its own step
+    within ``_first_step_bound`` of the CPU's (plus ``EMBED_TOL`` of the
+    scale): Adam's first step ``lr · g / (|g| + eps)`` turns a float32
+    rounding of a gradient entry near ``eps`` into a share of ``lr``, so
+    the tables' largest differences after the step (~3e-5 of their scale
+    on an H100) come from gradients equal within ~5e-7."""
+    cfg = gatne.GATNEConfig(loss=loss)
+    batch = [a[:cfg.batch_size] for a in _gatne_epochs(cfg, 1)[0]]
+    data = load_multiplex(seed=0)
+    ref = gatne.GATNEParams(data, cfg)
+    ref.reset_parameters(torch.Generator().manual_seed(1))
+    init = ref.state_dict()
+    (cpu, l_cpu), (dev, l_dev) = (_gatne_pair(cfg, d, init, batch)
+                                  for d in ("cpu", DEVICE))
+    cpu_params = dict(cpu.named_parameters())
+    opt_params, opt = gatne.gatne_model(data, cfg, torch.device(DEVICE))
+    opt_params.load_state_dict(init)
+    for k, p in opt_params.named_parameters():
+        p.grad = cpu_params[k].grad.to(DEVICE)
+    opt.step()
+    want = cpu.state_dict()
+    out = {"loss": _rel_err(l_dev, l_cpu),
+           **{f"grad_{k}": _rel_err(p.grad, cpu_params[k].grad)
+              for k, p in dev.named_parameters()},
+           **{f"optimizer_{k}": _rel_err(v, want[k])
+              for k, v in opt_params.state_dict().items()}}
+    bad = {k: v for k, v in out.items() if not v <= EMBED_TOL}
+    params, used = {}, {}
+    for k, p in dev.named_parameters():
+        w = cpu_params[k].detach()
+        diff = (p.detach().cpu().double() - w.double()).abs()
+        allowed = (_first_step_bound(p.grad, cpu_params[k].grad, cfg.lr)
+                   + EMBED_TOL * float(w.abs().max()))
+        params[k] = _rel_err(p.detach(), w)
+        used[k] = float((diff / allowed).max())
+        if not used[k] <= 1.0:
+            bad[k] = (params[k], used[k])
+    if bad:
+        raise AssertionError(f"linkpred gatne {loss} card vs CPU: {bad}")
+    return {**out, "params": params, "share_of_step_bound": used}
+
+
+def _gatne_epochs(cfg, n_epochs=2):
+    """The device loop's arrays of ``n_epochs`` epochs of ``cfg`` (the
+    numpy draws of ``train_gatne``)."""
+    data = load_multiplex(seed=0)
+    rng = np.random.default_rng(cfg.seed)
+    gatne.build_neighbor_tables(data, cfg.neighbor_samples, rng)
+    source = gatne._Batches(data, cfg, rng)
+    nb = len(source) // cfg.batch_size
+    return [source.epoch(rng, nb) for _ in range(n_epochs)]
+
+
+def _linkpred_card_vs_cpu() -> dict:
+    """One training step of GATNE (both losses: ``_gatne_card_vs_cpu``)
+    and of BiNE (its first batch) on the card and on the CPU from the same
+    initial values; BiNE's loss, every gradient and every table after the
+    step within ``EMBED_TOL`` of their scale."""
+    out = {f"gatne_{loss}": _gatne_card_vs_cpu(loss)
+           for loss in ("nsloss", "masked_bce")}
+    cfg = bine.BiNEConfig()
+    rng = np.random.default_rng(cfg.seed)
+    bg, _ = bine.synthetic_ratings(rng)
+    nu, nv = bg.node_counts["u"], bg.node_counts["v"]
+    eu, ev, ew = bg.relations[("u", "rate", "v")]
+    hub, auth = bine.hits_centrality(eu, ev, nu, nv)
+    du = bine._side_dataset(bg, "u", hub, cfg, rng)
+    dv = bine._side_dataset(bg, "v", auth, cfg, rng)
+    batch = next(bine.bine_batches((eu, ev, ew), du, dv, cfg.batch_size,
+                                   rng))
+    ref = bine.BiNETables(nu, nv, cfg.embed_dim)
+    bine._init_params(ref, 1)
+    losses, models = [], []
+    for device in ("cpu", DEVICE):
+        device = torch.device(device)
+        tables = bine.BiNETables(nu, nv, cfg.embed_dim)
+        tables.load_state_dict(ref.state_dict())
+        tables.to(device)
+        opt = embed_loop.make_adam(tables.parameters(), cfg.lr, device,
+                                   weight_decay=1e-4)
+        losses.append(bine.bine_step(tables, opt, cfg, bine.batch_to_device(
+            batch, nu, nv, device))[0])
+        models.append(tables)
+    out["bine"] = {"loss": _rel_err(losses[1], losses[0]),
+                   **_state_errs(models[1], models[0])}
+    if not max(out["bine"].values()) <= EMBED_TOL:
+        raise AssertionError(f"linkpred bine card vs CPU: {out['bine']}")
+    return out
+
+
+def _gatne_twins(loss) -> dict:
+    """Two epochs of GATNE's device loop replayed from the capture against
+    the same two epochs (the same arrays) stepped eagerly from the same
+    initial values: the losses and every parameter bit-equal."""
+    cfg = gatne.GATNEConfig(loss=loss)
+    epochs = _gatne_epochs(cfg)
+    data = load_multiplex(seed=0)
+    nb_tab = torch.from_numpy(gatne.build_neighbor_tables(
+        data, cfg.neighbor_samples, np.random.default_rng(0))).to(DEVICE)
+    fn = gatne.masked_bce if loss == "masked_bce" else gatne.nsloss
+    runs = []
+    for captured in (True, False):
+        params, opt = gatne.gatne_model(data, cfg, torch.device(DEVICE))
+        loop = embed_loop.HostDrawnEpochs(
+            gatne.make_step(params, opt, fn, nb_tab), epochs[0],
+            cfg.batch_size, opt, torch.device(DEVICE))
+        rows = [loop.run(a) if captured else loop.run_eager(a)
+                for a in epochs]
+        runs.append((rows, params.state_dict()))
+    (got, got_state), (want, want_state) = runs
+    rows_equal = all(np.array_equal(g, w) for g, w in zip(got, want))
+    differ = [k for k, v in got_state.items()
+              if not torch.equal(v, want_state[k])]
+    if not rows_equal or differ:
+        raise AssertionError(f"linkpred gatne {loss}: captured vs eager "
+                             f"rows equal {rows_equal}, parameters that "
+                             f"differ {differ}")
+    return {"bit_equal": True, "steps_per_epoch": len(got[0]),
+            "losses": [float(r.astype(np.float64).mean()) for r in got]}
+
+
+def _bine_run() -> dict:
+    """BiNE through the CLI at its defaults: no launch, the loss falling,
+    the REPRO criterion; host seconds of HITS, the walks and the two side
+    corpora (walks included), and the eager ms per step split into the
+    host's batch draw, its copy to the card and the step's host call,
+    beside the step's device time: the profiler's kernel time of its last
+    call repeated (the host's ~8 ms a call outlasts ``time_ms``'s sleep
+    kernel, so events would time the launches)."""
+    parts = _Parts([(bine, "hits_centrality", "hits"),
+                    (bine, "bine_walks", "walks"),
+                    (bine, "_side_dataset", "side_datasets"),
+                    (bine, "link_prediction_metrics", "metrics"),
+                    (bine, "batch_to_device", "copy"),
+                    (bine, "bine_step", "step_call")])
+    draws = {"s": 0.0}
+    batches = bine.bine_batches
+
+    def timed_batches(*args):
+        it = batches(*args)
+        while True:
+            t = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            finally:
+                draws["s"] += time.perf_counter() - t
+            yield batch
+
+    last = {}
+    step = bine.bine_step
+
+    def keep(tables, optimizer, cfg, batch):
+        last["call"] = (tables, optimizer, cfg, batch)
+        return step(tables, optimizer, cfg, batch)
+
+    reset_launches()
+    bine.bine_batches, bine.bine_step = timed_batches, keep
+    try:
+        with parts:
+            t = time.perf_counter()
+            res = cli_main(["--model", "bine", "--device", DEVICE,
+                            "--quiet"])
+            seconds = time.perf_counter() - t
+    finally:
+        bine.bine_batches, bine.bine_step = batches, step
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"linkpred bine: kernels launched {launches}")
+    _linkpred_ok("bine", res)
+    m = res["test_metrics"]
+    if not (m["f1"] >= LINKPRED_F1 and m["auc"] >= LINKPRED_AUC):
+        raise AssertionError(f"linkpred bine: REPRO criterion {m}")
+    steps = len(parts.each["step_call"])
+    host = dict(parts.host)
+    call = last["call"]
+    # the epochs' wall time (each ends in its loss read), with the ratings'
+    # draw and the tables' set-up (the run less HITS, corpora, metrics)
+    train_s = (seconds - host["hits"] - host["side_datasets"]
+               - host["metrics"])
+    out = {"run": "bine", "seconds": seconds, "launches": 0,
+           "initial_loss": res["initial_loss"],
+           "final_loss": res["final_loss"], "test_metrics": m,
+           "host_s": {"hits": host["hits"], "walks": host["walks"],
+                      "side_datasets": host["side_datasets"]},
+           "steps": steps,
+           "step_ms": {
+               "wall": train_s * 1e3 / steps,
+               "host_batch_draw": draws["s"] * 1e3 / steps,
+               "host_copy": host["copy"] * 1e3 / steps,
+               "host_step_call": host["step_call"] * 1e3 / steps,
+               "device_kernel": kernel_ms(lambda: [bine.bine_step(*call)
+                                                   for _ in range(10)]) / 10}}
+    emit({"phase": "linkpred", **out})
+    return out
+
+
+def _basis_card_vs_cpu() -> dict:
+    """``--model basis`` on the card against the port's CPU run: every float
+    within ``BASIS_TOL``, the components, degrees and diameter equal."""
+    reset_launches()
+    t = time.perf_counter()
+    got = cli_main(["--model", "basis", "--device", DEVICE, "--quiet"])
+    seconds = time.perf_counter() - t
+    want = basis_demo("cpu")
+    errs = {}
+    for k, v in want.items():
+        if k in ("degree", "connected_components", "diameter"):
+            if got[k] != v:
+                raise AssertionError(f"basis {k}: {got[k]} vs {v}")
+        else:
+            errs[k] = float(np.abs(np.subtract(got[k], v)).max())
+    if not max(errs.values()) <= BASIS_TOL:
+        raise AssertionError(f"basis card vs CPU: {errs}")
+    out = {"run": "basis", "seconds": seconds, "max_abs_err": errs,
+           "diameter": got["diameter"], "launches": 0}
+    emit({"phase": "linkpred", **out})
+    return out
+
+
+def phase_linkpred() -> dict:
+    """GATNE, BiNE and the centrality toolkit (no kernel of the port, as in
+    JAX): the four GATNE CLI runs of ``GATNE_RUNS`` (``_gatne_run``; the
+    defaults held to the REPRO criterion), captured GATNE epochs bit-equal
+    to eager ones for both losses, one step of each GATNE loss and of BiNE
+    card vs CPU (``EMBED_TOL``), BiNE at its defaults (``_bine_run``, the
+    REPRO criterion) and ``basis`` card vs CPU. Every kernel counter reads
+    0 across the phase."""
+    t0 = time.perf_counter()
+    reset_launches()
+    runs = {name: _gatne_run(name, argv, steps)
+            for name, (argv, steps) in GATNE_RUNS.items()}
+    m = runs["gatne"]["test_metrics"]
+    if not (m["f1"] >= LINKPRED_F1 and m["auc"] >= LINKPRED_AUC):
+        raise AssertionError(f"linkpred gatne: REPRO criterion {m}")
+    reset_launches()
+    checks = {"gatne_nsloss_captured_vs_eager": _gatne_twins("nsloss"),
+              "gatne_masked_bce_captured_vs_eager": _gatne_twins(
+                  "masked_bce"),
+              "card_vs_cpu": _linkpred_card_vs_cpu()}
+    emit({"phase": "linkpred", "tolerance": EMBED_TOL, **checks})
+    runs["bine"] = _bine_run()
+    runs["basis"] = _basis_card_vs_cpu()
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"linkpred: kernels launched {launches}")
+    emit({"phase": "linkpred", "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    return runs
+
+
 #: name, source, TPU kernel replaced, and which float32 case the summary
 #: times (GCN's first layer for K1 and for K3 on the Cora hybrid; GAT's 8
 #: heads for K2; the first GAT layer of a training step for K4-K6 and
@@ -2868,6 +3297,7 @@ def main() -> None:
     runs.append(row_sum_launches)
     phase_sage_sampled()
     phase_embed()
+    phase_linkpred()
     emit(previous_design(cases))
     launches = {k: sum(run[k] for run in runs) for k in COUNTERS}
     line = summary(cases, launches, floor_ms)

@@ -40,7 +40,17 @@ at the reference's defaults on the 500-node synthetic small-world graph
 (``--dataset``: an edge-list file; metapath2vec: the synthetic user-item
 graph only), ``--set`` over any field of the model's config
 (``device_walks=true`` draws DeepWalk's, Node2vec's and MetaPath2Vec's
-walks on the device). Prints one JSON line.
+walks on the device). ``--model gatne`` trains GATNE
+(``models/gatne.py``; dim 64, Adam lr 1e-2, 5 epochs; the epoch captured
+as a CUDA graph on the card) on the 400-node synthetic multiplex
+(``--dataset``: a directory holding ``train.txt``, ``valid.txt`` and
+``test.txt``), ``--model bine`` BiNE (``models/bine.py``; dim 128, AdamW
+lr 1e-2, 5 epochs, one eager step a batch) on the synthetic ratings, each
+with ``--set`` over any field of its config (``loss=masked_bce``,
+``inductive=true``, ``aggregator=sum``; ``logdir=DIR``), and ``--model
+basis`` the centrality toolkit's demo on the Basis 10-node graph
+(``analysis/demo.py``). None of the three launches a kernel of the port.
+Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -69,11 +79,20 @@ _SET_KEYS = {"graphsage_hybrid": ("aggregator", "lr"),
              "line": ("embed_dim", "num_negatives", "batch_size", "lr",
                       "epochs", "seed"),
              "sdne": ("hidden_dims", "alpha", "beta", "weight_decay",
-                      "batch_size", "lr", "epochs", "seed")}
+                      "batch_size", "lr", "epochs", "seed"),
+             "gatne": ("embed_dim", "edge_embed_dim", "attn_dim",
+                       "num_walks", "walk_length", "window",
+                       "num_negatives", "neighbor_samples", "batch_size",
+                       "lr", "epochs", "seed", "inductive",
+                       "negative_sampling", "aggregator", "loss",
+                       "cache_dir"),
+             "bine": ("embed_dim", "alpha", "beta", "gamma", "max_t",
+                      "min_t", "p_stop", "percent", "window",
+                      "num_negatives", "batch_size", "lr", "epochs", "seed",
+                      "logdir")}
 _EMBEDDERS = ("deepwalk", "node2vec", "struc2vec", "line", "sdne",
               "metapath2vec")
-#: The JAX CLI's models that the port does not train yet
-_NOT_PORTED = ("gatne", "bine")
+_LINKPRED = ("gatne", "bine")
 
 
 def _apply_overrides(cfg, overrides):
@@ -98,17 +117,20 @@ def _apply_overrides(cfg, overrides):
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(
         description="PyTorch/CUDA GNN trainer (GCN, GAT, GraphSAGE, HAN, "
-                    "GTN, the walk embedders)")
+                    "GTN, the walk embedders, GATNE, BiNE, the centrality "
+                    "demo)")
     ap.add_argument("--model", required=True,
                     choices=["gcn", "gat", "graphsage", "graphsage_unsup",
                              "han", "han_batch", "gtn", *_EMBEDDERS,
-                             *_NOT_PORTED])
+                             *_LINKPRED, "basis"])
     ap.add_argument("--dataset", default=None,
                     help="dataset path or 'cora'/'citeseer' (falls back to "
                          "the synthetic graph of that shape); han and "
                          "han_batch: an ACM.mat path or 'imdb'; gtn: a "
                          "train.pkl or ACM.mat path or 'imdb'; the walk "
-                         "embedders but metapath2vec: an edge-list file")
+                         "embedders but metapath2vec: an edge-list file; "
+                         "gatne: a directory of train.txt, valid.txt and "
+                         "test.txt")
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--set", action="append", metavar="KEY=VALUE",
@@ -118,8 +140,9 @@ def main(argv=None) -> dict:
                          "fanouts=10,10, aggregator=max, "
                          "device_sampling=true; han: n_papers=<int>; "
                          "han_batch: batch_size, lr, patience; the walk "
-                         "embedders: any field of their config, e.g. "
-                         "num_walks=10, device_walks=true")
+                         "embedders, gatne and bine: any field of their "
+                         "config, e.g. num_walks=10, device_walks=true, "
+                         "loss=masked_bce")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--resume", action="store_true",
                     help="load a prior checkpoint before training")
@@ -144,9 +167,6 @@ def main(argv=None) -> dict:
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
     name = args.model
-    if name in _NOT_PORTED:
-        ap.error(f"--model {name} is not ported to PyTorch yet (the JAX "
-                 "package's CLI trains it)")
     if any("=" not in kv for kv in args.set or []):
         ap.error("--set takes KEY=VALUE")
     overrides = dict(kv.split("=", 1) for kv in (args.set or []))
@@ -175,6 +195,16 @@ def main(argv=None) -> dict:
                      "is not ported yet; without --dataset it trains on the "
                      "synthetic user-item graph")
         return _embed(name, args)
+    if name in _LINKPRED:
+        return _linkpred(name, args)
+    if name == "basis":
+        from .analysis.demo import basis_demo
+        from .core.device import resolve_device
+
+        device = resolve_device(args.device)
+        result = dict(basis_demo(device), device=str(device))
+        print(json.dumps({"model": name, **result}))
+        return result
 
     import torch
 
@@ -415,6 +445,41 @@ def _embed(name, args) -> dict:
     if not args.quiet:
         for row in history:
             print(f"epoch {row[0]}: loss {row[1]:.4f}")
+    print(json.dumps({"model": name, **result}))
+    return result
+
+
+def _linkpred(name, args) -> dict:
+    """GATNE on the multiplex graph or BiNE on the ratings: JAX's
+    ``test_metrics`` (and for BiNE ``final_loss`` and ``initial_loss``),
+    with the run's loss ends, ``epochs``, ``seconds`` (walks and corpus
+    included) and ``device``."""
+    import time
+
+    from .core.device import resolve_device
+
+    device = resolve_device(args.device)
+    verbose = not args.quiet
+    t0 = time.perf_counter()
+    if name == "gatne":
+        from .data.edgelist import load_multiplex
+        from .models.gatne import GATNEConfig, train_gatne
+
+        data = load_multiplex(root=args.dataset, seed=args.seed)
+        cfg = _apply_overrides(
+            GATNEConfig(epochs=args.epochs or 5, seed=args.seed), args.set)
+        _, history, metrics = train_gatne(data, cfg, verbose=verbose,
+                                          device=device)
+    else:
+        from .models.bine import BiNEConfig, train_bine
+
+        cfg = _apply_overrides(
+            BiNEConfig(epochs=args.epochs or 5, seed=args.seed), args.set)
+        _, history, metrics = train_bine(cfg=cfg, verbose=verbose,
+                                         device=device)
+    result = dict(final_loss=history[-1][1], initial_loss=history[0][1],
+                  test_metrics=metrics, epochs=len(history),
+                  seconds=time.perf_counter() - t0, device=str(device))
     print(json.dumps({"model": name, **result}))
     return result
 

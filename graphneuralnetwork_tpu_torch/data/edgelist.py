@@ -1,6 +1,6 @@
 """Edge-list datasets for the walk embedders (numpy, on the host).
 
-Port of the first half of ``graphneuralnetwork_tpu/data/edgelist.py``:
+Port of ``graphneuralnetwork_tpu/data/edgelist.py``:
 ``EdgeListData``, ``read_edgelist`` (whitespace edge lists with string
 node names mapped to contiguous ids, index 0 ``<UNK>``),
 ``synthetic_smallworld`` (the deterministic stand-in for the reference's
@@ -8,14 +8,18 @@ airport and Wiki edge lists) and ``load_edgelist``. The same file or seed
 gives the same arrays. JAX parses numeric files with its C++ engine and
 rebuilds the vocabulary vectorised; the port parses in Python and takes
 the same vectorised rebuild (``_vocab_from_int_tokens``) when every token
-is a plain integer, which gives the ids of the Python path.
+is a plain integer, which gives the ids of the Python path. GATNE's
+multiplex half: ``MultiplexData`` (training edges per edge type with
+held-out true and false edges), ``synthetic_multiplex`` (a community
+multiplex graph), ``read_multiplex_dir`` (``train.txt``, ``valid.txt``,
+``test.txt``) and ``load_multiplex``, the same arrays as JAX's.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -119,3 +123,110 @@ def load_edgelist(path: str | None = None, weighted: bool = False,
     if path is not None and os.path.exists(path):
         return read_edgelist(path, weighted=weighted)
     return synthetic_smallworld(seed=seed)
+
+
+@dataclass(frozen=True)
+class MultiplexData:
+    """Typed edges for GATNE (GATNE/utils/data_utils.py:11-51):
+    training edges per type + val/test true/false edge lists."""
+    n_nodes: int
+    edge_types: List[str]
+    train_edges: Dict[str, Tuple[np.ndarray, np.ndarray]]
+    valid_true: Dict[str, Tuple[np.ndarray, np.ndarray]]
+    valid_false: Dict[str, Tuple[np.ndarray, np.ndarray]]
+    test_true: Dict[str, Tuple[np.ndarray, np.ndarray]]
+    test_false: Dict[str, Tuple[np.ndarray, np.ndarray]]
+    features: Optional[np.ndarray] = None
+    vocab: Optional[Vocab] = None
+
+
+def synthetic_multiplex(n_nodes: int = 400, n_types: int = 2,
+                        avg_deg: int = 8, seed: int = 0) -> MultiplexData:
+    """Community-structured multiplex graph (8 communities, 85 % of each
+    node's edges inside its own) with a tenth of each type's edges held
+    out for validation and a tenth for test, as many random false edges,
+    and 32 normal features a node."""
+    rng = np.random.default_rng(seed)
+    comm = rng.integers(0, 8, n_nodes)
+    types = [str(t + 1) for t in range(n_types)]
+    train, vt, vf, tt, tf = {}, {}, {}, {}, {}
+    for t in range(n_types):
+        s, r = [], []
+        n_e = n_nodes * avg_deg // 2
+        for _ in range(n_e):
+            a = int(rng.integers(0, n_nodes))
+            if rng.random() < 0.85:
+                pool = np.flatnonzero(comm == comm[a])
+                b = int(pool[rng.integers(0, len(pool))])
+            else:
+                b = int(rng.integers(0, n_nodes))
+            if a != b:
+                s.append(a)
+                r.append(b)
+        s = np.array(s, np.int32)
+        r = np.array(r, np.int32)
+        k = len(s)
+        n_hold = max(k // 10, 10)
+        perm = rng.permutation(k)
+        hold_v = perm[:n_hold]
+        hold_t = perm[n_hold:2 * n_hold]
+        keep = perm[2 * n_hold:]
+        train[types[t]] = (s[keep], r[keep])
+        vt[types[t]] = (s[hold_v], r[hold_v])
+        tt[types[t]] = (s[hold_t], r[hold_t])
+        fv = rng.integers(0, n_nodes, (2, n_hold)).astype(np.int32)
+        ft = rng.integers(0, n_nodes, (2, n_hold)).astype(np.int32)
+        vf[types[t]] = (fv[0], fv[1])
+        tf[types[t]] = (ft[0], ft[1])
+    feats = rng.normal(size=(n_nodes, 32)).astype(np.float32)
+    return MultiplexData(
+        n_nodes=n_nodes, edge_types=types, train_edges=train,
+        valid_true=vt, valid_false=vf, test_true=tt, test_false=tf,
+        features=feats)
+
+
+def read_multiplex_dir(root: str) -> MultiplexData:
+    """GATNE data layout: train.txt/valid.txt/test.txt with lines
+    '<type> <src> <dst>' (+ label column for valid/test false edges)."""
+    def read_typed(path, with_label=False):
+        true_e: Dict[str, list] = {}
+        false_e: Dict[str, list] = {}
+        with open(path) as f:
+            for line in f:
+                p = line.split()
+                if len(p) < 3:
+                    continue
+                t, a, b = p[0], p[1], p[2]
+                tgt = true_e
+                if with_label and len(p) > 3 and p[3] == "0":
+                    tgt = false_e
+                tgt.setdefault(t, []).append((a, b))
+        return true_e, false_e
+
+    train_raw, _ = read_typed(os.path.join(root, "train.txt"))
+    valid_t, valid_f = read_typed(os.path.join(root, "valid.txt"), True)
+    test_t, test_f = read_typed(os.path.join(root, "test.txt"), True)
+
+    names = [x for d in (train_raw, valid_t, test_t)
+             for es in d.values() for e in es for x in e]
+    vocab = Vocab(names)
+
+    def conv(d):
+        return {t: (np.array([vocab[a] for a, _ in es], np.int32),
+                    np.array([vocab[b] for _, b in es], np.int32))
+                for t, es in d.items()}
+
+    types = sorted(train_raw.keys())
+    return MultiplexData(
+        n_nodes=len(vocab), edge_types=types,
+        train_edges=conv(train_raw),
+        valid_true=conv(valid_t), valid_false=conv(valid_f),
+        test_true=conv(test_t), test_false=conv(test_f), vocab=vocab)
+
+
+def load_multiplex(root: str | None = None, seed: int = 0) -> MultiplexData:
+    """``read_multiplex_dir(root)`` if ``root`` holds a ``train.txt``, else
+    the 400-node ``synthetic_multiplex(seed=seed)``."""
+    if root is not None and os.path.exists(os.path.join(root, "train.txt")):
+        return read_multiplex_dir(root)
+    return synthetic_multiplex(seed=seed)

@@ -1,3 +1,4 @@
+from .bine import BiNEConfig, train_bine  # noqa: F401
 from .embedding import (  # noqa: F401
     LINEConfig,
     SDNEConfig,
@@ -9,3 +10,4 @@ from .embedding import (  # noqa: F401
     run_sdne,
     run_struc2vec,
 )
+from .gatne import GATNEConfig, evaluate_gatne, train_gatne  # noqa: F401

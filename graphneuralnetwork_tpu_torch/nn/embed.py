@@ -1,6 +1,7 @@
-"""Embedding models of the walk embedders: SkipGram, LINE, SDNE.
+"""Embedding models of the walk embedders (SkipGram, LINE, SDNE) and of
+GATNE.
 
-Port of ``graphneuralnetwork_tpu/nn/embed.py`` (GATNE is not ported yet):
+Port of ``graphneuralnetwork_tpu/nn/embed.py``:
 
   * ``SkipGram``: a center and a context table; the logits of a padded
     batch are center[c_b] . context[ctx_neg[b, j]]. DeepWalk, Node2vec,
@@ -12,9 +13,14 @@ Port of ``graphneuralnetwork_tpu/nn/embed.py`` (GATNE is not ported yet):
     embedding and the reconstruction; ``sdne_loss_first`` (the batch
     Laplacian's trace penalty) and ``sdne_loss_second`` (the beta-weighted
     reconstruction).
+  * ``GATNE``: GATNE-T (free ``base`` and ``edge`` tables) or GATNE-I
+    (``feat_base`` and ``feat_edge`` maps of node features), its type
+    attention over the per-type neighbour aggregates.
 
 Parameter names follow the flax trees (``center``/``context``,
-``vertex``/``context``, ``enc{i}``/``dec{i}``/``dec_out``), so
+``vertex``/``context``, ``enc{i}``/``dec{i}``/``dec_out``, GATNE's
+``base``/``edge``/``w_att``/``v_att``/``trans``/``feat_base``/
+``feat_edge``), so
 ``params.from_flax`` carries them over. The tables' gradients are the
 backward of an index gather: PyTorch's sorted ``index_put_``
 accumulation on the card, which sums each id's rows in order on one warp
@@ -22,7 +28,8 @@ accumulation on the card, which sums each id's rows in order on one warp
 ``train/embed_loop.py:spread_padding`` for what that costs on long runs).
 Initialisation draws from an explicit ``torch.Generator``
 (``reset_parameters``): the tables normal(0.01), the layers flax's
-``lecun_normal`` and zero biases.
+``lecun_normal`` and zero biases; GATNE's parameters flax's initialisers
+of the JAX module (normal 0.5, 0.2 and 0.02, ``lecun_normal``).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .conv import lecun_normal_
@@ -148,3 +156,103 @@ def sdne_loss_second(x_hat: torch.Tensor, adj_rows: torch.Tensor,
     """The reconstruction error weighted ``beta`` where A > 0, else 1."""
     b = torch.where(adj_rows > 0, beta, 1.0)
     return torch.sum(((x_hat - adj_rows) * b) ** 2)
+
+
+def _by_type(pick: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``table[e_b]`` for each row b of the one-hot ``pick`` [B, T]: a
+    product with the one-hot rows (exact: one term is 1 x the entry, the
+    rest 0 x finite entries), whose backward is one more product. An
+    index gather's backward would sum each type's B / T rows serially
+    (``index_put_``'s sorted accumulation, one run an id): with two types
+    that was half of a captured GATNE step on an H100
+    (``tools/gatne_step.py``)."""
+    return torch.einsum("be,e...->b...", pick, table)
+
+
+class GATNE(nn.Module):
+    """GATNE-T / GATNE-I (GATNE/models/GATNE.py:7-75): the L2-normalised
+    embedding of each center under its edge type.
+
+    Inputs per batch: center ids [B], edge-type ids [B] and per-type
+    sampled neighbour ids [B, T, S]. Each type t aggregates (``mean`` or
+    ``sum``) the type-t edge embeddings of its type-t neighbours into
+    u_t [De]; attention softmax_t(v_e . tanh(W_e u_t)) over the types,
+    with the center's edge type e selecting W_e and v_e, mixes them; the
+    mix through trans_e [De, D] is added to the base embedding. GATNE-T's
+    tables are free parameters, GATNE-I's linear maps of the node
+    ``features`` (GATNE/models/GATNE.py:56).
+
+    JAX gathers every type's embedding of every neighbour ([B, T, S, T,
+    De]) and keeps the diagonal ``neigh[:, t, :, t, :]``; here each type's
+    neighbours gather their own type only, a T-th of the gather, with the
+    same values. The per-type attention and transform parameters are
+    picked by a product with the center's one-hot type (``_by_type``)."""
+
+    def __init__(self, vocab_size: int, num_edge_types: int,
+                 embed_dim: int = 200, edge_embed_dim: int = 16,
+                 attn_dim: int = 32, inductive: bool = False,
+                 feature_dim: Optional[int] = None,
+                 aggregator: str = "mean"):
+        super().__init__()
+        if aggregator not in ("mean", "sum"):
+            raise ValueError(f"aggregator must be 'mean' or 'sum', got "
+                             f"{aggregator!r}")
+        T, De, Da, D = num_edge_types, edge_embed_dim, attn_dim, embed_dim
+        self.num_edge_types, self.aggregator = T, aggregator
+        self.inductive = inductive
+        if inductive:
+            if feature_dim is None:
+                raise ValueError("GATNE-I needs feature_dim")
+            self.feat_base = nn.Linear(feature_dim, D, bias=False)
+            self.feat_edge = nn.Parameter(torch.empty(T, feature_dim, De))
+        else:
+            self.base = _table(vocab_size, D)
+            self.edge = nn.Parameter(torch.empty(vocab_size, T, De))
+        self.w_att = nn.Parameter(torch.empty(T, De, Da))
+        self.v_att = nn.Parameter(torch.empty(T, Da, 1))
+        self.trans = nn.Parameter(torch.empty(T, De, D))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            if self.inductive:
+                lecun_normal_(self.feat_base.weight,
+                              self.feat_base.in_features, generator)
+                self.feat_edge.normal_(0.0, 0.02, generator=generator)
+            else:
+                self.base.normal_(0.0, 0.5, generator=generator)
+                self.edge.normal_(0.0, 0.5, generator=generator)
+            for p in (self.w_att, self.v_att, self.trans):
+                p.normal_(0.0, 0.2, generator=generator)
+
+    def _type_neighbors(self, neighbors: torch.Tensor,
+                        features: Optional[torch.Tensor]) -> torch.Tensor:
+        """[B, T, S, De]: neighbour s of type t embedded under type t."""
+        if self.inductive:
+            return torch.einsum("btsf,tfd->btsd", features[neighbors],
+                                self.feat_edge)
+        types = torch.arange(self.num_edge_types, device=neighbors.device)
+        return self.edge[neighbors, types[None, :, None]]
+
+    def forward(self, centers: torch.Tensor, edge_type: torch.Tensor,
+                neighbors: torch.Tensor,
+                features: Optional[torch.Tensor] = None) -> torch.Tensor:
+        centers, edge_type = centers.long(), edge_type.long()
+        neigh = self._type_neighbors(neighbors.long(), features)
+        u = (neigh.sum(dim=2) if self.aggregator == "sum"
+             else neigh.mean(dim=2))                        # [B, T, De]
+        # the center's edge type picks W_e, v_e and trans_e
+        pick = F.one_hot(edge_type, self.num_edge_types).to(u.dtype)
+        att = torch.tanh(torch.einsum("btd,bda->bta", u,
+                                      _by_type(pick, self.w_att)))
+        att = torch.einsum("bta,bao->bto", att,
+                           _by_type(pick, self.v_att))[..., 0]   # [B, T]
+        att = torch.softmax(att, dim=-1)
+        mixed = torch.einsum("bt,btd->bd", att, u)          # [B, De]
+        delta = torch.einsum("bd,bdo->bo", mixed,
+                             _by_type(pick, self.trans))
+        base = (self.feat_base(features[centers]) if self.inductive
+                else self.base[centers])
+        emb = base + delta
+        return emb / torch.clamp_min(
+            torch.linalg.vector_norm(emb, dim=-1, keepdim=True), 1e-12)

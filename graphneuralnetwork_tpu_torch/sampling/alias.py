@@ -1,9 +1,9 @@
 """Alias-method O(1) weighted sampling (numpy).
 
-Port of ``build_alias_table``, ``sample_alias`` and ``ConcatAliasTables``
-from ``graphneuralnetwork_tpu/sampling/alias.py``: ``NegativeSampler``
-draws with the first two, the weighted, node2vec and struc2vec walkers
-with the packed tables. The same inputs and ``rng`` give the same tables
+Port of ``build_alias_table``, ``sample_alias``, ``ConcatAliasTables`` and
+``CachedWeightedSampler`` from ``graphneuralnetwork_tpu/sampling/alias.py``:
+``NegativeSampler`` draws with the first two, the weighted, node2vec and
+struc2vec walkers with the packed tables. The same inputs and ``rng`` give the same tables
 and draws.
 """
 
@@ -73,3 +73,30 @@ class ConcatAliasTables:
         g = base + i
         keep = rng.random(len(t_idx)) < self.accept[g]
         return np.where(keep, i, self.alias[g])
+
+
+class CachedWeightedSampler:
+    """Batch-cached weighted draws — the ``RandomGenerator`` pattern
+    (GraphEmbedding/DeepWalk/data_utils.py:97-113) backed by an alias table
+    instead of random.choices."""
+
+    def __init__(self, weights, rng: np.random.Generator,
+                 cache: int = 10000):
+        self.accept, self.alias = build_alias_table(np.asarray(weights))
+        self.rng = rng
+        self.cache = cache
+        self._buf = None
+        self._i = 0
+
+    def draw(self) -> int:
+        """One draw, from a buffer of ``cache`` draws refilled when spent."""
+        if self._buf is None or self._i >= len(self._buf):
+            self._buf = sample_alias(self.accept, self.alias, self.rng,
+                                     self.cache)
+            self._i = 0
+        v = int(self._buf[self._i])
+        self._i += 1
+        return v
+
+    def draw_batch(self, size: int) -> np.ndarray:
+        return sample_alias(self.accept, self.alias, self.rng, size)

@@ -1,7 +1,8 @@
 """CSR construction and random walks on the host (numpy).
 
 Port of ``csr_from_edges``, the numpy path of ``uniform_walks``,
-``weighted_walks``, ``Node2VecWalker`` and ``metapath_walks`` from
+``weighted_walks``, ``Node2VecWalker``, ``metapath_walks`` and BiNE's
+``bine_walks`` from
 ``graphneuralnetwork_tpu/sampling/walks.py``: every walker advances in
 lock-step with vectorised draws, so a [n_walks, length] walk matrix takes
 O(length) numpy steps. The same inputs and ``rng`` give JAX's walks draw
@@ -176,3 +177,27 @@ def metapath_walks(hetero, metapath: Sequence[Tuple[str, str, str]],
         alive = step_alive
         walks[:, t] = cur
     return walks
+
+
+def bine_walks(
+    indptr, indices, weights, centrality: np.ndarray,
+    rng: np.random.Generator, *,
+    percent: float = 0.15, max_t: int = 32, min_t: int = 1,
+    p_stop: float = 0.15,
+) -> list[np.ndarray]:
+    """BiNE HITS-biased truncated walks (BiNE/utils/sample_utils.py:27-62):
+    node v gets max(int(max_t * c_v * n * percent), min_t) walks, c the
+    centrality normalised to sum 1 (walk count proportional to
+    centrality, :37-41), each of a geometric length (stop probability
+    ``p_stop`` a step) clipped to [min_t, max_t], drawn as one weighted
+    walk matrix of the longest length and cut."""
+    n_nodes = len(indptr) - 1
+    c = centrality / max(centrality.sum(), 1e-12)
+    num_walks = np.maximum((max_t * c * n_nodes * percent).astype(np.int64),
+                           min_t)
+    starts = np.repeat(np.arange(n_nodes), num_walks)
+    lens = np.minimum(rng.geometric(p_stop, len(starts)), max_t)
+    lens = np.maximum(lens, min_t)
+    full = weighted_walks(indptr, indices, weights, starts, int(lens.max()),
+                          rng)
+    return [full[i, :lens[i]] for i in range(len(starts))]

@@ -106,8 +106,9 @@ class CapturedEpochs:
     rows of a corpus on the device. ``step(sel)`` trains on the rows
     ``sel`` ([batch_size] int64) and returns float32 ``[n_out]`` (its loss
     and accuracy); ``run()`` draws the epoch's permutation from
-    ``generator``, runs every step and returns the float32 ``[nb,
-    n_out]`` rows, read once.
+    ``generator`` (without one, the rows in order: the caller has shuffled
+    them, as ``HostDrawnEpochs`` does), runs every step and returns the
+    float32 ``[nb, n_out]`` rows, read once.
 
     On CUDA ``run()`` replays a CUDA graph (``scan_loop.EpochGraph``) of
     one step that reads its batch at ``index``, a device counter the graph
@@ -120,15 +121,16 @@ class CapturedEpochs:
     def __init__(self, step: Callable[[torch.Tensor], torch.Tensor],
                  n_rows: int, batch_size: int, n_out: int,
                  optimizer: torch.optim.Optimizer,
-                 generator: torch.Generator, device: torch.device):
+                 generator: Optional[torch.Generator],
+                 device: torch.device):
         self.step, self.optimizer, self.generator = step, optimizer, generator
         self.device = device
         self.n_rows, self.batch_size = n_rows, batch_size
         self.nb = n_rows // batch_size
         if self.nb < 1:
             raise ValueError(f"{n_rows} rows make no batch of {batch_size}")
-        self.perm = torch.zeros(self.nb, batch_size, dtype=torch.int64,
-                                device=device)
+        self.perm = torch.arange(self.nb * batch_size,
+                                 device=device).view(self.nb, batch_size)
         self.index = torch.zeros(1, dtype=torch.int64, device=device)
         self.rows = torch.zeros(self.nb, n_out, device=device)
         self.graph: Optional[EpochGraph] = None
@@ -142,10 +144,11 @@ class CapturedEpochs:
             self.index += 1
 
     def _shuffle(self) -> None:
-        perm = torch.randperm(self.n_rows, generator=self.generator,
-                              device=self.device)
-        self.perm.copy_(perm[:self.nb * self.batch_size].view(
-            self.nb, self.batch_size))
+        if self.generator is not None:
+            perm = torch.randperm(self.n_rows, generator=self.generator,
+                                  device=self.device)
+            self.perm.copy_(perm[:self.nb * self.batch_size].view(
+                self.nb, self.batch_size))
         self.index.zero_()
 
     def _read(self) -> np.ndarray:
@@ -175,6 +178,37 @@ class CapturedEpochs:
         for _ in range(replays):
             self.graph.replay()
         return self._read()
+
+
+class HostDrawnEpochs:
+    """Epochs whose batches the host draws, as JAX's device loops do for
+    GATNE: each epoch's arrays (rows already in the epoch's order, ``nb *
+    batch_size`` of them) go to the device in one copy into fixed buffers,
+    and ``CapturedEpochs`` (``loop``, no generator) steps through them in
+    order, ``step(*batch) -> loss`` on ``batch_size`` rows of every
+    buffer. ``run(arrays)`` / ``run_eager(arrays)`` return the epoch's
+    float32 losses [nb]."""
+
+    def __init__(self, step: Callable[..., torch.Tensor],
+                 arrays: Sequence[np.ndarray], batch_size: int,
+                 optimizer: torch.optim.Optimizer, device: torch.device):
+        self.buffers = [torch.empty_like(_host_tensor(a), device=device)
+                        for a in arrays]
+        self.loop = CapturedEpochs(
+            lambda sel: step(*(b[sel] for b in self.buffers))[None],
+            len(arrays[0]), batch_size, 1, optimizer, None, device)
+
+    def _load(self, arrays: Sequence[np.ndarray]) -> None:
+        for buf, a in zip(self.buffers, arrays):
+            buf.copy_(_host_tensor(a))
+
+    def run(self, arrays: Sequence[np.ndarray]) -> np.ndarray:
+        self._load(arrays)
+        return self.loop.run()[:, 0]
+
+    def run_eager(self, arrays: Sequence[np.ndarray]) -> np.ndarray:
+        self._load(arrays)
+        return self.loop.run_eager()[:, 0]
 
 
 def batch_step(model, optimizer, loss_fn: Callable,
@@ -229,11 +263,16 @@ def skipgram_epochs(model, optimizer, loss_fn: Callable,
         len(arrays[0]), batch_size, 2, optimizer, generator, device)
 
 
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A corpus array on ``device``: ids as int64, the rest float32."""
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
+    """A corpus array as a CPU tensor: ids as int64, the rest float32."""
     a = np.asarray(a)
     dtype = np.int64 if np.issubdtype(a.dtype, np.integer) else np.float32
-    return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a, dtype))
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A corpus array on ``device``: ids as int64, the rest float32."""
+    return _host_tensor(a).to(device)
 
 
 def _log(verbose: bool, epoch: int, loss: float, acc: float,

@@ -6,8 +6,9 @@ must print JAX's keys (``model``, ``final_loss``, ``initial_loss``,
 ``embed_shape``) with a loss that decreases; LINE and SDNE (no walks)
 follow JAX's ``cli.main`` from JAX's initial parameters within
 ``LOSS_TOL``. ``read_edgelist`` reads files the tests write, equal to
-JAX's reader on its Python path and on its C++ engine's. The models that
-the port does not train yet are refused with a message.
+JAX's reader on its Python path and on its C++ engine's. What the port does
+not run (the JData pipeline, ``--set`` keys outside a model's config) is
+refused with a message.
 """
 
 import json
@@ -96,8 +97,8 @@ def test_cli_line_and_sdne_follow_jax(model, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--model", "gatne"], "not ported"),
-    (["--model", "bine"], "not ported"),
+    (["--model", "gatne", "--set", "no_such_key=1"], "not a key"),
+    (["--model", "bine", "--set", "no_such_key=1"], "not a key"),
     (["--model", "metapath2vec", "--dataset", "some_dir"], "JData"),
     (["--model", "struc2vec", "--set", "device_walks=true"],
      "not a key"),
