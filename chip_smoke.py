@@ -13,8 +13,14 @@ Phases, each printing one JSON line:
                shapes, and times kernel, plain version and, where one
                exists, one library call (CUDA events, warmed, median):
                the launch floor (an empty kernel through the same ctypes
-               path); K1/K2 on the Cora COO graph and a 2M-edge graph, K2
-               also on a graph with a hub row and in its gathered form on
+               path); K1/K2 on the Cora COO graph and a 2M-edge graph, K1
+               also in its gathered form (the sender gather read in the
+               kernel) at GCN's F=128 with the edge weights and at
+               GAT-COO's 8 heads x 8 with [E, 8] weights, and in its
+               transposed forms (the gathered form's d x over the graph's
+               sender-sorted transpose, and a sender gather's backward:
+               per-edge values read at the edge ids) at the same shapes;
+               K2 also on a graph with a hub row and in its gathered form on
                the remainders of SAGE's Pubmed hybrid (C 500 and 128), of
                the Cora GAT hybrid and of the 2M-edge community graph (the
                three-pass shift's 8 heads); K4, K5 and
@@ -42,9 +48,16 @@ Phases, each printing one JSON line:
                and at GTN's shapes (``phase_gtn_kernels``) K1 on the
                final convolution of the wedge plan of the 920-node ACM
                stack (C x hidden = 128, float32 and bfloat16) and of the
-               3,025-paper stack (float32), and on the 920-node plan's
-               second composition (its 2 channels, over rows of (output
-               slot, edge type));
+               3,025-paper stack (float32), per edge and in the gathered
+               form the model runs (x [N, 2 x 64], weights [E, 2]), and
+               on the 920-node plan's second composition (its 2 channels,
+               over rows of (output slot, edge type)), per edge and in
+               the gathered form the model runs, forward and backward,
+               these GTN cases also with the L2 flushed before each call;
+               K1's library call is ``index_add_`` per edge and
+               ``torch.sparse.mm`` on a CSR matrix in the gathered form
+               with [E] weights, and beside every gathered case one
+               ``index_add_`` of its products gathered beforehand;
   4. path    — GCN, GAT-COO, GAT on the hybrid Cora graph (dropout off,
                then attention dropout with the same masks on both sides),
                GCN on the Cora hybrid and GraphSAGE mean and max on the
@@ -160,7 +173,7 @@ must reach test_acc >= 0.80 with exact launch counts.
                ms per step split into host and device; ``--model basis``
                on the card against the CPU (``BASIS_TOL``; components,
                degrees and diameter equal).
-Then a ``previous_design`` line (every K2-K10 case beside its previous
+Then a ``previous_design`` line (every K1-K10 case beside its previous
 design's time where ``PREVIOUS_DESIGN_MS`` records one, not measured
 here), a ``kernels`` summary line (K1-K10 and the two row-sum kernels,
 with the launch floor) and, last,
@@ -174,6 +187,8 @@ import collections
 import dataclasses
 import faulthandler
 import json
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -257,8 +272,11 @@ LARGE_NODES, LARGE_EDGES = 65536, 2 ** 21
 #: (``bench.py``'s 2M-edge GAT shape, its locality given, not recovered).
 ATTEND_LARGE = dict(n=131072, e=2 ** 21, comm=256, heads=8, feat=128)
 #: Times with each kernel's previous design, ms ("NVIDIA H100 80GB HBM3,
-#: 700.00 W", PERF.md): K2 (a thread per row and column) keyed by
-#: (kernel, graph, width); K3 and K7 (a CTA per quarter row block and
+#: 700.00 W", PERF.md): K1 (a thread per row and 16-byte column vector;
+#: its per-edge cases as this script last timed them, PERF.md §6) keyed
+#: by (kernel, graph, dtype, width);
+#: K2 (a thread per row and column) keyed by (kernel, graph, width); K3
+#: and K7 (a CTA per quarter row block and
 #: 32-column slab) by (kernel, graph, x dtype, width); K4, K5 and K6
 #: (a warp per row, a lane group per head, two passes in K4) by (kernel,
 #: graph, x dtype, "HxF", dropout); K8, K9 and K10 (a warp per row, a
@@ -266,6 +284,23 @@ ATTEND_LARGE = dict(n=131072, e=2 ** 21, comm=256, heads=8, feat=128)
 #: by this script: ``previous_design`` prints them on a line of their own
 #: beside this run's times.
 PREVIOUS_DESIGN_MS = {
+    ("K1", "cora", "float32", 128): 0.003965,
+    ("K1", "cora", "float32", 7): 0.003651,
+    ("K1", "cora", "float32", 64): 0.003962,
+    ("K1", "cora", "float32", 8): 0.004571,
+    ("K1", "cora", "float32", 1): 0.003320,
+    ("K1", "large", "float32", 128): 0.3677,
+    ("K1", "cora", "bfloat16", 128): 0.005018,
+    ("K1", "cora", "bfloat16", 7): 0.003302,
+    ("K1", "cora", "bfloat16", 64): 0.005437,
+    ("K1", "cora", "bfloat16", 8): 0.004651,
+    ("K1", "cora", "bfloat16", 1): 0.003021,
+    ("K1", "large", "bfloat16", 128): 0.1930,
+    ("K1", "cora_padded_spans", "float32", 128): 0.05655,
+    ("K1", "gtn_final", "float32", 128): 0.06681,
+    ("K1", "gtn_final", "bfloat16", 128): 0.06511,
+    ("K1", "gtn3025_final", "float32", 128): 0.1814,
+    ("K1", "gtn_compose1", "float32", 2): 0.006530,
     ("K2", "cora", 8): 0.00358,
     ("K2", "cora", 1): 0.00329,
     ("K2", "large", 8): 0.0308,
@@ -385,6 +420,25 @@ def phase_device() -> str:
     return card
 
 
+def _ptxas_by_function(log: str) -> dict:
+    """ptxas's registers and spills of each kernel function in ``log``,
+    by its demangled name (the mangled one where ``c++filt`` is absent)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+        elif name and ("registers" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(out),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return out
+    return dict(zip(names, out.values())) if len(names) == len(out) else out
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     logs = build.build()
@@ -392,7 +446,8 @@ def phase_build() -> None:
                     if "registers" in ln or "spill" in ln]
              for name, log in logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": build.kernel_names(), "ptxas": ptxas})
+          "kernels": build.kernel_names(), "ptxas": ptxas,
+          "k1_ptxas": _ptxas_by_function(logs.get("spmm_kernel", ""))})
 
 
 def _large_graph(gen):
@@ -416,15 +471,53 @@ def _check(name, out, ref, tol_key, abs_sum=None):
     return err, rtol, atol
 
 
-def _k1_case(values, recv, row_ptr, n, label):
-    """K1 on ``values`` against its plain version. Only the ``row_ptr[-1]``
-    spanned edges count (Cora's padding does not), so the plain version,
-    the library call and the bound all take those edges alone."""
+def _k1_layout(values, out_c, heads, n, e) -> dict:
+    lay = k1.spmm_layout(out_c, out_c // heads, values.element_size(),
+                         e / max(n, 1), n, tile_walk.sm_count(
+                             torch.device(DEVICE).index or 0))
+    return dataclasses.asdict(lay)
+
+
+#: Bytes written between two calls of ``_cold_ms``: more than the card's
+#: L2 (50 MB on an H100), so each call reads its operands from DRAM.
+L2_FLUSH_BYTES = 64 << 20
+
+
+def _cold_ms(fn, reps: int = 20) -> float:
+    """Median device time of one call of ``fn`` with the L2 flushed before
+    it (``L2_FLUSH_BYTES`` written), each call between its own two events;
+    ``time_ms`` times calls back to back, where an operand smaller than
+    the L2 stays there from one call to the next."""
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device=DEVICE)
+    for _ in range(3):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    for start, end in events:
+        scratch.fill_(1.0)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def _k1_case(values, recv, row_ptr, n, label, long_rows=None,
+             long_edges=0, cold=False):
+    """K1's per-edge form on ``values`` against its plain version. Only
+    the ``row_ptr[-1]`` spanned edges count (Cora's padding does not), so
+    the plain version, the library call and the bound all take those edges
+    alone. ``long_rows``: the rows a CTA of their own takes (the graph's,
+    as the main path passes them; None on raw arrays). ``cold``: also time
+    K1 with the L2 flushed before each call (``kernel_cold_ms``)."""
     elt = values.element_size()
     f = values.shape[1]
     e = int(row_ptr[-1])
     vals, rec = values[:e], recv[:e]
-    out = k1.segment_sum(values, recv, row_ptr, n)
+    kw = dict(n_edges=e, long_rows=long_rows, long_edges=long_edges)
+    out = k1.segment_sum(values, recv, row_ptr, n, **kw)
     ref = k1.segment_sum_plain(vals, rec, n)
     torch.cuda.synchronize()
     dtype = str(values.dtype).replace("torch.", "")
@@ -433,13 +526,152 @@ def _k1_case(values, recv, row_ptr, n, label):
     lib_out = torch.zeros(n, f, dtype=values.dtype, device=DEVICE)
     n_bytes = e * f * elt + (n + 1) * 4 + n * f * elt
     b_ms, b_by = bound(n_bytes, e * f)
+    def kernel():
+        return k1.segment_sum(values, recv, row_ptr, n, **kw)
+
     return dict(
-        kernel="K1", shape=list(values.shape), edges_read=e, dtype=dtype,
-        n_out=n, graph=label, max_abs_err=err, rtol=rtol, atol=atol,
-        kernel_ms=time_ms(lambda: k1.segment_sum(values, recv, row_ptr, n)),
+        kernel="K1", form="edges", shape=list(values.shape), edges_read=e,
+        dtype=dtype, n_out=n, graph=label, max_abs_err=err, rtol=rtol,
+        atol=atol, layout=_k1_layout(values, f, 1, n, e),
+        long_rows=0 if long_rows is None else int(long_rows.numel()),
+        kernel_ms=time_ms(kernel),
+        **({"kernel_cold_ms": _cold_ms(kernel)} if cold else {}),
         plain_ms=time_ms(lambda: k1.segment_sum_plain(vals, rec, n)),
         library_ms=time_ms(lambda: lib_out.index_add_(0, rec, vals)),
         library="index_add_", bound_ms=b_ms, bound_by=b_by, bytes=n_bytes)
+
+
+def _k1_csr_library(table, rows_ptr, cols, w, n):
+    """One PyTorch call for K1's gathered form with [E] weights:
+    ``torch.sparse.mm`` on a CSR matrix of the spans ``rows_ptr``, the
+    gathered rows ``cols`` and the weights ``w`` in the table's type,
+    built once. Returns the call and its output, or None and the reason
+    where PyTorch refuses it."""
+    a = torch.sparse_csr_tensor(rows_ptr, cols, w.to(table.dtype),
+                                size=(n, table.shape[0]))
+    try:
+        out = torch.sparse.mm(a, table)
+    except (RuntimeError, NotImplementedError) as exc:
+        return None, f"{type(exc).__name__}: {str(exc)[:120]}"
+    return (lambda: torch.sparse.mm(a, table)), out
+
+
+def _k1_gathered_case(label, form, table, rows, row_ptr, n, senders,
+                      weight=None, weight_at=None, round_weight=False,
+                      long_rows=None, long_edges=0, cold=False):
+    """K1's gathered form, ``out[r] = Σ_e round(w · table[senders_e])``,
+    against its plain version (``gathered_plain`` then
+    ``segment_sum_plain``) over the ``row_ptr[-1]`` spanned edges: the
+    main path's forward (``form`` "gather": the graph's receiver rows),
+    the gathered form's d x (``form`` "transpose": the transpose's sender
+    rows, the receivers gathered, the weights read at the edge ids) and a
+    sender gather's backward (``form`` "transpose_ids": per-edge values
+    read at the edge ids). The bound counts the table rows that the edges
+    name, once, the gather index, the weights and their index, the spans
+    and ``out``. The library call: with [E] weights ``torch.sparse.mm`` on
+    a CSR matrix (``_k1_csr_library``); a sender gather's backward is one
+    ``index_add_`` of the values at the graph's senders; no single call
+    gathers and reduces with [E, H] weights. ``index_add_ms``: one
+    ``index_add_`` of the products gathered beforehand (the per-edge
+    form's library call on this function's terms). ``cold``: also time K1
+    with the L2 flushed before each call."""
+    e = int(row_ptr[-1])
+    c, elt = table.shape[1], table.element_size()
+    heads = 1 if weight is None or weight.ndim == 1 else weight.shape[1]
+    kw = dict(senders=senders, weight=weight, weight_at=weight_at,
+              round_weight=round_weight, n_edges=e, long_rows=long_rows,
+              long_edges=long_edges)
+    w_e = weight if weight is None or weight_at is not None else weight[:e]
+    w_at = None if weight_at is None else weight_at[:e]
+
+    def plain():
+        return k1.segment_sum_plain(k1.gathered_plain(
+            table, senders[:e], w_e, w_at, round_weight), rows[:e], n)
+
+    out = k1.segment_sum(table, rows, row_ptr, n, **kw)
+    ref = plain()
+    torch.cuda.synchronize()
+    dtype = str(table.dtype).replace("torch.", "")
+    terms = k1.gathered_plain(table, senders[:e], w_e, w_at, round_weight)
+    abs_sum = k1.segment_sum_plain(terms.float().abs(), rows[:e], n)
+    err, rtol, atol = _check(f"K1 {label} {form}", out, ref, dtype, abs_sum)
+    named = int(senders[:e].unique().numel())
+    n_bytes = (named * c * elt + e * 4 + (0 if weight is None
+                                          else e * heads * 4)
+               + (0 if weight_at is None else e * 4) + (n + 1) * 4
+               + n * c * elt)
+    b_ms, b_by = bound(n_bytes, e * c * (1 if weight is None else 2))
+    library_ms, library_err = None, None
+    if weight is not None and weight.ndim == 1:
+        call, lib = _k1_csr_library(table, row_ptr, senders[:e],
+                                    w_e if w_at is None else w_e[w_at.long()],
+                                    n)
+        library = "torch.sparse.mm (CSR)"
+    elif weight is None and form == "transpose_ids":
+        # Σ over a sender's edges of the values read at the edge ids: the
+        # same sum, in edge order, at the edges' senders
+        lib_out = torch.zeros(n, c, dtype=table.dtype, device=DEVICE)
+        ids = senders[:e].long()
+        by = rows[:e].long()[torch.argsort(ids)]
+        vals_e = table[:e]
+
+        def call():
+            return lib_out.index_add_(0, by, vals_e)
+        lib = call().clone()
+        lib_out.zero_()
+        library = "index_add_"
+    else:
+        call, lib = None, "none: a gather and a reduce"
+    if call is None:
+        library = lib
+    else:
+        library_err = float((lib.float() - ref.float()).abs().max())
+        library_ms = time_ms(call)
+    pre_out = torch.zeros(n, c, dtype=table.dtype, device=DEVICE)
+    pre_rows = rows[:e]
+
+    def kernel():
+        return k1.segment_sum(table, rows, row_ptr, n, **kw)
+
+    return dict(
+        kernel="K1", form=form, shape=[int(table.shape[0]), c],
+        heads=heads, edges_read=e, rows_named=named, dtype=dtype, n_out=n,
+        graph=label, max_abs_err=err, rtol=rtol, atol=atol,
+        layout=_k1_layout(table, c, heads, n, e),
+        long_rows=0 if long_rows is None else int(long_rows.numel()),
+        kernel_ms=time_ms(kernel),
+        **({"kernel_cold_ms": _cold_ms(kernel)} if cold else {}),
+        plain_ms=time_ms(plain), library_ms=library_ms, library=library,
+        library_max_abs_err=library_err,
+        index_add_ms=time_ms(lambda: pre_out.index_add_(0, pre_rows,
+                                                        terms)),
+        bound_ms=b_ms, bound_by=b_by, bytes=n_bytes)
+
+
+def _k1_gathered_cases(label, graph, table, weight, round_weight,
+                       sender_gather=False, cold=False):
+    """K1's gathered forms on ``graph`` (``_k1_gathered_case``): the
+    forward and its d x over the transpose; with ``sender_gather`` also
+    the backward of a sender gather of float32 [E_pad, heads] values (GAT's
+    scores)."""
+    t = graph.transpose
+    ge = dict(long_edges=graph.long_edges, cold=cold)
+    cases = [
+        _k1_gathered_case(label, "gather", table, graph.receivers,
+                          graph.row_ptr, graph.n_nodes, graph.senders,
+                          weight, None, round_weight, graph.long_rows, **ge),
+        _k1_gathered_case(label, "transpose", table, t.senders, t.row_ptr,
+                          graph.n_nodes, t.receivers, weight, t.edge_ids,
+                          round_weight, t.long_rows, **ge)]
+    if sender_gather:
+        heads = 1 if weight.ndim == 1 else weight.shape[1]
+        edge_vals = torch.randn(
+            graph.n_edge_pad, heads, device=DEVICE,
+            generator=torch.Generator(device=DEVICE).manual_seed(4))
+        cases.append(_k1_gathered_case(
+            label, "transpose_ids", edge_vals, t.senders, t.row_ptr,
+            graph.n_nodes, t.edge_ids, long_rows=t.long_rows, **ge))
+    return cases
 
 
 def _k2_case(graph, src, senders, label):
@@ -521,8 +753,25 @@ def phase_kernels(cora, cora_hg, pubmed_hg, large) -> tuple[list, float]:
                 ("large", 128)]:
             recv, row_ptr, n, e = graphs[label]
             values = torch.randn(e, f, device=DEVICE, generator=gen)
-            cases.append(_k1_case(values.to(dtype), recv, row_ptr, n, label))
+            longs = (dict(long_rows=g.long_rows, long_edges=g.long_edges)
+                     if label == "cora" else {})
+            cases.append(_k1_case(values.to(dtype), recv, row_ptr, n, label,
+                                  **longs))
             emit({"phase": "kernels", **cases[-1]})
+    # the gathered form as the main path runs it: GCN's first layer
+    # (F=128, the graph's weights rounded to x's type) and GAT-COO's 8
+    # heads x 8 (float32 [E, 8] weights), with their transposed forms
+    heads_w = torch.rand(g.n_edge_pad, 8, device=DEVICE, generator=gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        for f, weight, rnd in ((128, g.edge_weight, True),
+                               (64, heads_w, False)):
+            table = torch.randn(g.n_nodes, f, device=DEVICE,
+                                generator=gen).to(dtype)
+            for case in _k1_gathered_cases(
+                    "cora", g, table, weight, rnd,
+                    sender_gather=f == 64 and dtype == torch.float32):
+                cases.append(case)
+                emit({"phase": "kernels", **case})
     # the same main-path case with row spans over the padded edge list
     # (the last row then holds all padding edges): what skipping them buys
     padded_ptr = torch.cat([g.row_ptr[:-1], g.row_ptr.new_tensor(
@@ -1607,9 +1856,11 @@ HAN_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (3e-2, 3e-2)}
 #: HAN's launches (per epoch, final test forward): an epoch is one train
 #: step (forward and backward of the two metapath GAT layers), with no
 #: validation pass; COO forward per metapath: K2 (shift) + K1
-#: (denominator) + K1 (aggregation), a backward of neither
+#: (denominator) + K1 (aggregation), backward 4 K1 (as GAT-COO's: the
+#: aggregation's d h, the denominator's read-back, the scores' sender and
+#: receiver gathers)
 HAN_HYBRID = {"K4": (2, 2), "K5": (2, 0), "K6": (2, 0)}
-HAN_COO = {"K1": (4, 4), "K2": (2, 2)}
+HAN_COO = {"K1": (12, 4), "K2": (2, 2)}
 #: phase: (argv, launches, (n_papers, layout, dtype) of the timed block;
 #: None for ``han_batch``, which runs eager steps and no kernel)
 HAN_RUNS = {
@@ -1777,11 +2028,12 @@ GTN_DENSE_SPARSE = 2e-4
 #: GTN's launches (per epoch, final test forward). The sparse forward
 #: runs K1 five times (step 0's composition, step 1's degree sum, step
 #: 1's composition, the final degree sum, the final ``spmm_weighted``),
-#: its backward twice (each composition's transpose, over the wedges
-#: sorted by input slot; the degree sums' and the convolution's backward
-#: are gathers). The dense model runs matrix products and no kernel of
-#: the port.
-GTN_SPARSE = {"K1": (7, 5)}
+#: its backward five times (each composition's transpose, over the wedges
+#: sorted by input slot; the two degree read-backs' sums by row; the
+#: convolution's d x over the final graph's transpose; the degree sums'
+#: backward are gathers). The dense model runs matrix products and no
+#: kernel of the port.
+GTN_SPARSE = {"K1": (10, 5)}
 GTN_RUNS = {
     "gtn": (["--model", "gtn"], {}),
     "gtn_bf16": (["--model", "gtn", "--dtype", "bfloat16"], {}),
@@ -1819,8 +2071,15 @@ def _gtn_model(data, sparse: bool, dtype):
 def phase_gtn_kernels(plan, plan_large) -> list[dict]:
     """K1 at GTN's sparse shapes: the final convolution's [E_pad, C x
     hidden] on the 920-node plan (float32, bfloat16) and on the 4,637-node
-    plan (float32), and the 920-node plan's second composition
-    [W_pad, C] over its (output slot, edge type) rows."""
+    plan (float32), per edge and in the gathered form the model runs (x
+    [N, C x hidden], weights [E_pad, C], and its d x over the final
+    graph's transpose); the 920-node plan's second composition, per edge
+    [W_pad, C] over its (output slot, edge type) rows, and as the model
+    runs it: the gathered form of h [nnz_1, C] with the wedge weights over
+    the forward order, and its d h over the backward order (the same
+    wedges by input slot). The 920-node final convolution's and the
+    compositions' cases are also timed with the L2 flushed before each
+    call."""
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     width = GTN_DIMS["channels"] * GTN_DIMS["hidden"]
     cases = []
@@ -1832,7 +2091,33 @@ def phase_gtn_kernels(plan, plan_large) -> list[dict]:
              torch.float32)]:
         values = torch.randn(g.n_edge_pad, f, device=DEVICE, generator=gen)
         cases.append(_k1_case(values.to(dtype), g.receivers, g.row_ptr,
-                              g.n_nodes, label))
+                              g.n_nodes, label, g.long_rows, g.long_edges,
+                              cold=label != "gtn3025_final"))
+        emit({"phase": "kernels", **cases[-1]})
+    for label, g, dtype in [
+            ("gtn_final", plan.final_graph, torch.float32),
+            ("gtn_final", plan.final_graph, torch.bfloat16),
+            ("gtn3025_final", plan_large.final_graph, torch.float32)]:
+        table = torch.randn(g.n_nodes, width, device=DEVICE,
+                            generator=gen).to(dtype)
+        weight = torch.rand(g.n_edge_pad, GTN_DIMS["channels"],
+                            device=DEVICE, generator=gen)
+        for case in _k1_gathered_cases(label, g, table, weight, False,
+                                       cold=label == "gtn_final"):
+            cases.append(case)
+            emit({"phase": "kernels", **case})
+    # the composition as SparseGTN._compose runs it (WedgeOrder.sum: one
+    # block at these sizes), forward and backward
+    for form, order, n_in in (("gather", plan.step_fwd[1], plan.nnz[1]),
+                              ("transpose", plan.step_bwd[1],
+                               plan.step_fwd[1].graph.n_nodes)):
+        g = order.graph
+        table = torch.randn(n_in, GTN_DIMS["channels"], device=DEVICE,
+                            generator=gen)
+        cases.append(_k1_gathered_case(
+            "gtn_compose1", form, table, g.receivers, g.row_ptr, g.n_nodes,
+            g.senders, g.edge_weight, long_rows=g.long_rows,
+            long_edges=g.long_edges, cold=True))
         emit({"phase": "kernels", **cases[-1]})
     return cases
 
@@ -3098,13 +3383,14 @@ def phase_linkpred() -> dict:
 
 
 #: name, source, TPU kernel replaced, and which float32 case the summary
-#: times (GCN's first layer for K1 and for K3 on the Cora hybrid; GAT's 8
+#: times (GCN's first layer for K1, in the gathered form the COO path
+#: runs, and for K3 on the Cora hybrid; GAT's 8
 #: heads for K2; the first GAT layer of a training step for K4-K6 and
 #: K8-K10; SAGE's first layer on the Pubmed hybrid for K7)
 KERNELS = {
     "K1": ("segment_sum", "graphneuralnetwork_tpu_torch/csrc/spmm_kernel.cu",
            "graphneuralnetwork_tpu/ops/pallas/spmm_kernel.py:94",
-           _width("cora", 128)),
+           lambda c: _width("cora", 128)(c) and c["form"] == "gather"),
     "K2": ("segment_max",
            "graphneuralnetwork_tpu_torch/csrc/segment_max_kernel.cu",
            "graphneuralnetwork_tpu/ops/pallas/segment_max_kernel.py:28",
@@ -3160,9 +3446,10 @@ def summary(cases, launches, floor_ms) -> dict:
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"],
             "timed_case": f"float32 {c['shape']} on {c['graph']}"
+                          + (f" ({c['form']})" if kern == "K1" else "")
                           + (" with dropout" if c.get("dropout") else ""),
         })
-        if kern in ("K2", "K3", "K7"):   # every case of this run
+        if kern in ("K1", "K2", "K3", "K7"):   # every case of this run
             rows[-1]["cases"] = [
                 {"case": _case_name(x), "ms": x["kernel_ms"],
                  "bound_ms": x["bound_ms"]}
@@ -3176,6 +3463,8 @@ def _tile_case(c) -> str:
 
 
 def _case_name(c) -> str:
+    if c["kernel"] == "K1":
+        return f"{c['form']} {c['dtype']} {c['shape']} on {c['graph']}"
     if c["kernel"] == "K2":
         return f"{c['form']} {c['shape']} on {c['graph']}"
     return _tile_case(c)
@@ -3189,12 +3478,17 @@ def _attend_key(c) -> tuple:
 
 
 def previous_design(cases) -> dict:
-    """Each K2-K10 case's time in this run beside its previous design's,
+    """Each K1-K10 case's time in this run beside its previous design's,
     which ``PREVIOUS_DESIGN_MS`` holds as recorded (None where it holds
-    none), not measured here."""
+    none: K1's gathered forms replace a gather and the per-edge kernel),
+    not measured here."""
     rows = []
     for c in cases:
-        if c["kernel"] == "K2":
+        if c["kernel"] == "K1":
+            case = _case_name(c)
+            key = (("K1", c["graph"], c["dtype"], c["shape"][1])
+                   if c["form"] == "edges" else None)
+        elif c["kernel"] == "K2":
             case = _case_name(c)
             key = ("K2", c["graph"], c["shape"][1])
         elif c["kernel"] in ("K3", "K7"):
@@ -3255,12 +3549,20 @@ def main() -> None:
                          device=DEVICE, model="gat", tile_dtype=torch.bfloat16)
     phase_capture(cli_configs(cora, cora_h, cora_h16, cora_g, pubmed))
     del cora_h16
+    # GCN-COO per epoch: 2 layers x (train + val forward) K1's gathered
+    # form, and 2 in the backward (each layer's d support over the
+    # transpose; the first layer's support X.W needs one too); the final
+    # test evaluation adds one forward. GAT-COO per layer forward: K2 (the
+    # shift), K1 (the denominator) and K1 (the aggregation); backward 4 K1:
+    # the aggregation's d h over the transpose, the denominator's
+    # read-back by receiver, the scores' gathers by sender (over the
+    # transpose) and by receiver
     runs += [
         _drive("gcn", ["--model", "gcn", "--epochs", str(GCN_EPOCHS),
-                       "--device", DEVICE, "--quiet"], {"K1": (4, 2)}),
+                       "--device", DEVICE, "--quiet"], {"K1": (6, 2)}),
         _drive("gat", ["--model", "gat", "--layout", "coo", "--epochs",
                        str(GAT_EPOCHS), "--device", DEVICE, "--quiet"],
-               {"K1": (8, 4), "K2": (4, 2)}),
+               {"K1": (16, 4), "K2": (4, 2)}),
     ]
     # per epoch: 2 layers x (train + val forward) K4, 2 layers x backward
     # K5 and K6; the final test evaluation adds one forward
@@ -3271,22 +3573,23 @@ def main() -> None:
             ["--model", "gat", "--epochs", str(GAT_EPOCHS), "--dtype", dtype,
              "--device", DEVICE, "--quiet"], hybrid))
     # GCN hybrid per epoch: 2 layers x (train + val forward) K3 on the
-    # tiles and K1 on the remainder, 2 K3 in the backward (the transpose
-    # tiles for d support of both layers; the remainder's is a gather)
+    # tiles and K1 on the remainder, 2 K3 and 2 K1 in the backward (d
+    # support of both layers: the transpose tiles, and the remainder's
+    # transpose)
     for dtype in ("float32", "bfloat16"):
         runs.append(_drive(
             "gcn_hybrid" + ("_bf16" if dtype == "bfloat16" else ""),
             ["--model", "gcn", "--layout", "hybrid", "--epochs",
              str(GCN_EPOCHS), "--dtype", dtype, "--device", DEVICE,
-             "--quiet"], {"K3": (6, 2), "K1": (4, 2)}))
+             "--quiet"], {"K3": (6, 2), "K1": (6, 2)}))
     # SAGE mean per forward: 2 layers x (counts + sum) K3 and K1; the
     # backward needs d input of sage_out only (sage0's input is the
-    # features): 1 K3. Max per forward: 2 layers x (K7 + K2), backward in
-    # plain PyTorch.
+    # features): 1 K3 and 1 K1 (the remainder's transpose). Max per
+    # forward: 2 layers x (K7 + K2), backward in plain PyTorch.
     sage = ["--model", "graphsage", "--layout", "hybrid", "--epochs",
             str(SAGE_EPOCHS), "--device", DEVICE, "--quiet"]
     runs.append(_drive("graphsage_hybrid", sage,
-                       {"K3": (9, 4), "K1": (8, 4)}))
+                       {"K3": (9, 4), "K1": (9, 4)}))
     runs.append(_drive("graphsage_hybrid_max",
                        sage + ["--set", "aggregator=max"],
                        {"K7": (4, 2), "K2": (4, 2)}))

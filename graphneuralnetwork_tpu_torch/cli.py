@@ -93,6 +93,10 @@ _SET_KEYS = {"graphsage_hybrid": ("aggregator", "lr"),
 _EMBEDDERS = ("deepwalk", "node2vec", "struc2vec", "line", "sdne",
               "metapath2vec")
 _LINKPRED = ("gatne", "bine")
+#: The models each layout but ``auto``/``coo`` serves.
+_LAYOUT_MODELS = {"hybrid": ("gcn", "gat", "graphsage", "han",
+                             "graphsage_unsup"),
+                  "sparse": ("gtn",)}
 
 
 def _apply_overrides(cfg, overrides):
@@ -177,12 +181,13 @@ def main(argv=None) -> dict:
     if unknown:
         ap.error(f"--set {', '.join(unknown)}: not a key of --model {name} "
                  f"--layout {args.layout} (keys: {', '.join(keys) or 'none'})")
-    layouts = {"han_batch": ("auto", "coo"),
-               "gtn": ("auto", "coo", "sparse")}.get(
-                   name, ("auto", "coo", "hybrid"))
-    if args.layout not in layouts:
+    # JAX's gate (its cli.py ``_layout_models``), and the sampled
+    # pipeline's unsupervised mode, which trains under any layout
+    allowed = _LAYOUT_MODELS.get(args.layout)
+    if allowed is not None and name not in allowed:
         ap.error(f"--layout {args.layout} is not supported for --model "
-                 f"{name} (use --layout {' or '.join(layouts)})")
+                 f"{name} (supported models: {', '.join(allowed)}; use "
+                 "--layout auto or coo)")
     if branch in ("graphsage", "graphsage_unsup"):
         return _sampled_sage(name, args)
     if name in ("han", "han_batch"):

@@ -274,13 +274,15 @@ class HybridGraph:
         """Build every cache of the graph and of its parts that is built at
         first use with a host sync (the tiles' ``slot_edges`` and masks,
         ``row_edges``, ``long_rows``, ``rem_long_rows``, the remainders'
-        ``long_rows``): a CUDA graph's capture cannot sync, so the
-        captured epoch block calls this before it captures, whichever
-        paths its warm-up epoch takes."""
+        ``long_rows``, and ``rem``'s ``transpose``, over which K1 sums
+        its gathers' backward; ``rem_t`` is walked by K6 alone and needs
+        none): a CUDA graph's capture cannot sync, so the captured epoch
+        block calls this before it captures, whichever paths its warm-up
+        epoch takes."""
         self.bcsr.warm()
         self.bcsr_t.warm()
         self.rem.warm()
-        self.rem_t.warm()
+        self.rem_t.long_rows
         self.row_edges, self.long_rows, self.rem_long_rows
         return self
 

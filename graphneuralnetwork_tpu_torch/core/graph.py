@@ -11,7 +11,11 @@ on-device representation is the same padded, receiver-sorted COO edge list:
   * ``row_ptr``: int32[N+1] CSR offsets of the real edges, which the CUDA
     segment kernels walk; ``row_ptr[N] = n_edges``;
   * ``long_rows`` (built at first use and kept): the rows with more than
-    ``long_edges`` edges, which the segment max (K2) splits over a CTA.
+    ``long_edges`` edges, which the segment max (K2) and the segment sum
+    (K1) split over a CTA;
+  * ``transpose`` (built at first use and kept): the real edges in sender
+    order with the sender offsets, over which K1 sums the backward of a
+    gather by sender (``ops/aggregate.py``).
 
 Padding edges self-loop on node ``n_nodes-1`` with weight 0. They lie in
 no row's ``row_ptr`` span: every aggregation gives them zero values, so
@@ -37,15 +41,32 @@ EDGE_BLOCK = 1024
 NODE_BLOCK = 8
 #: Output rows per chunk span (the reference kernel's row block).
 ROW_BLOCK = 128
-#: The segment max (K2) splits a row over the 8 warps of a CTA of its own
-#: when it holds more edges than the larger of these: a fixed floor, and a
-#: multiple of the graph's mean row length (``Graph.long_edges``).
+#: The segment max (K2) and the segment sum (K1) split a row over the 8
+#: warps of a CTA of its own when it holds more edges than the larger of
+#: these: a fixed floor, and a multiple of the graph's mean row length
+#: (``Graph.long_edges``). K1 takes K2's rule: below it, its row groups of
+#: up to 8 warps (``spmm_layout``) already cover rows of a few times the
+#: mean, and a hub past it would hold its group's warps while the rest
+#: finish.
 LONG_ROW_EDGES = 32
 LONG_ROW_MEANS = 4
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class Transpose:
+    """A graph's real edges in sender order (a stable sort of the
+    receiver-sorted list): the rows of a walk over senders, in which K1
+    sums the backward of a gather by sender."""
+
+    edge_ids: torch.Tensor    # int32[E]: the receiver-order id of each edge
+    row_ptr: torch.Tensor     # int32[N+1]: the sender offsets
+    senders: torch.Tensor     # int32[E]: each edge's sender (its row here)
+    receivers: torch.Tensor   # int32[E]: each edge's receiver
+    long_rows: torch.Tensor   # int32: senders above ``Graph.long_edges``
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,11 +118,27 @@ class Graph:
         deg = self.row_ptr[1:] - self.row_ptr[:-1]
         return torch.nonzero(deg > self.long_edges).flatten().int()
 
+    @functools.cached_property
+    def transpose(self) -> Transpose:
+        """The real edges in sender order (``Transpose``), with the sender
+        rows above ``long_edges`` edges. Built at first use (a sort and a
+        host sync) and kept with the graph."""
+        e = self.n_edges
+        send = self.senders[:e].long()
+        order = torch.argsort(send, stable=True)
+        counts = torch.bincount(send, minlength=self.n_nodes)
+        return Transpose(
+            edge_ids=order.int(),
+            row_ptr=torch.cat([counts.new_zeros(1), counts.cumsum(0)]).int(),
+            senders=send[order].int(),
+            receivers=self.receivers[:e][order].contiguous(),
+            long_rows=torch.nonzero(counts > self.long_edges).flatten().int())
+
     def warm(self) -> "Graph":
-        """Build every cache that is built at first use (``long_rows``), so
-        that a later use does not sync with the host (a CUDA graph's
-        capture cannot)."""
-        self.long_rows
+        """Build every cache that is built at first use (``long_rows``,
+        ``transpose``), so that a later use does not sync with the host (a
+        CUDA graph's capture cannot)."""
+        self.long_rows, self.transpose
         return self
 
     def with_weights(self, w: torch.Tensor) -> "Graph":

@@ -24,8 +24,8 @@ from torch.nn import functional as F
 
 from ..core.bcsr import HybridGraph
 from ..core.graph import Graph
-from ..ops import (aggregate_edges, edge_softmax, segment_max,
-                   segment_mean)
+from ..ops import edge_softmax, segment_max, segment_mean
+from ..ops.aggregate import gather_receivers, gather_senders
 from ..ops.bcsr_attention import gat_tiled_attend, hybrid_segment_max
 from ..ops.spmm import spmm, spmm_weighted
 
@@ -141,7 +141,10 @@ class GATConv(nn.Module):
                 return out.reshape(n, self.num_heads * self.features)
             return out.mean(dim=1)
 
-        scores = f_src[graph.senders] + f_dst[graph.receivers]
+        # the two gathers' backward sums each edge's gradient into its
+        # sender (over the graph's transpose) and its receiver on K1
+        scores = (gather_senders(graph, f_src)
+                  + gather_receivers(graph, f_dst))
         scores = F.leaky_relu(scores, self.negative_slope)
         # alpha stays float32: the weighted products and their gradients
         # (the attention vectors' gradients cancel) are formed in float32
@@ -197,7 +200,7 @@ class SAGEConv(nn.Module):
     ``mean`` divides by ``spmm(graph, ones)``, at least 1) and ``max``
     ``hybrid_segment_max`` (K7 and K2). On a ``Graph`` they are the
     unweighted segment mean and max over the real edges and the weighted
-    sum of ``aggregate_edges``.
+    sum ``spmm`` (K1's gathered form).
     """
 
     def __init__(self, in_features: int, features: int,
@@ -236,13 +239,12 @@ class SAGEConv(nn.Module):
                 counts = torch.clamp_min(spmm(graph, ones), 1.0)
                 return spmm(graph, x) / counts
             return hybrid_segment_max(graph, x)
+        if self.aggregator == "sum":
+            return spmm(graph, x)
         msgs = x[graph.senders]
         if self.aggregator == "mean":
             return segment_mean(msgs, graph.receivers, graph.n_nodes,
                                 mask=graph.edge_mask)
-        if self.aggregator == "sum":
-            w = graph.edge_weight[:, None].to(x.dtype)
-            return aggregate_edges(graph, msgs * w)
         return segment_max(msgs, graph.receivers, graph.n_nodes,
                            mask=graph.edge_mask)
 

@@ -13,19 +13,21 @@ serves both models.
 Every sum of repeated indices here runs in a fixed order, so that a run is
 bit-equal to a rerun and a captured epoch to an eager one: no atomics.
 
-  * A composition sums with K1 (``ops/aggregate.py``) over the wedges
-    sorted by (output slot, edge type): ``q[o, u] = sum a_w h[slot_w]``,
-    then ``H'[o] = sum_u mix[u] q[o, u]``. The mixing weights enter after
-    the segment sum, so their gradient is a plain reduction of ``q``. The
-    backward, ``dh = S^T dq`` of the wedge matrix ``S``, is K1 again, over
-    the same wedges sorted by input slot (``_Compose``).
+  * A composition sums with K1's gathered form (``ops/aggregate.py``)
+    over the wedges sorted by (output slot, edge type): ``q[o, u] = sum
+    a_w h[slot_w]``, then ``H'[o] = sum_u mix[u] q[o, u]``. The mixing
+    weights enter after the segment sum, so their gradient is a plain
+    reduction of ``q``. The backward, ``dh = S^T dq`` of the wedge matrix
+    ``S``, is K1 again, over the same wedges sorted by input slot
+    (``_Compose``).
   * The degree sums run as K1 over the patterns' rows, which the plan
-    holds row-major.
+    holds row-major; the degrees read back per slot (``gather_rows``)
+    sum their gradient on K1 too, and the final convolution
+    (``spmm_weighted``) is K1's gathered form, its ``d x`` K1 over the
+    final graph's transpose.
   * A scatter whose indices are unique within one call stays
     ``index_add`` (the mixture's slots, the added diagonal, the final
-    edge positions); the gathers' backward is PyTorch's ``index_put_``
-    with accumulation, which sorts its indices and sums each index's
-    values in order on the card.
+    edge positions), its backward a gather.
 
 ``wedge_block`` bounds the working set: a composition of more than
 ``wedge_block`` channel-wedges runs in blocks of whole output rows (a row
@@ -50,7 +52,7 @@ from torch.nn import functional as F
 
 from ..core.device import resolve_device
 from ..core.graph import Graph, build_graph, csr_offsets
-from ..ops.aggregate import aggregate_rows
+from ..ops.aggregate import aggregate_rows, gather_rows, sum_gathered
 from ..ops.spmm import spmm_weighted
 from .gtn import GTN
 
@@ -80,16 +82,18 @@ class WedgeOrder:
         of at most ``limit`` wedges."""
         g = self.graph
         if self.ptr[-1] <= limit:
-            e = g.n_edges
-            return aggregate_rows(x[g.senders[:e]] * g.edge_weight[:e, None],
-                                  g.receivers[:e], g.row_ptr, g.n_nodes)
+            return sum_gathered(x, g.senders, g.receivers, g.row_ptr,
+                                g.n_nodes, g.n_edges, g.edge_weight,
+                                g.long_rows, g.long_edges)
         outs = []
         for r0, r1 in _blocks(self.ptr, limit):
             e0, e1 = int(self.ptr[r0]), int(self.ptr[r1])
-            outs.append(aggregate_rows(
-                x[g.senders[e0:e1]] * g.edge_weight[e0:e1, None],
-                g.receivers[e0:e1] - r0, g.row_ptr[r0:r1 + 1] - e0,
-                r1 - r0))
+            # a block's rows take no CTA of their own: its long rows would
+            # be a slice of the graph's list (a host sync a call)
+            outs.append(sum_gathered(
+                x, g.senders[e0:e1], g.receivers[e0:e1] - r0,
+                g.row_ptr[r0:r1 + 1] - e0, r1 - r0, e1 - e0,
+                g.edge_weight[e0:e1]))
         return torch.cat(outs)
 
 
@@ -136,8 +140,11 @@ class GTNPlan:
 
     def warm(self) -> "GTNPlan":
         """Build the first-use caches that sync with the host, before a
-        CUDA graph's capture."""
+        CUDA graph's capture: the final graph's, and the wedge orders'
+        long rows."""
         self.final_graph.warm()
+        for order in (*self.step_fwd, *self.step_bwd):
+            order.graph.long_rows
         return self
 
 
@@ -341,7 +348,7 @@ class SparseGTN(GTN):
         with every diagonal slot ``diag``."""
         h = h.index_add(0, diag, h.new_ones(diag.shape[0], h.shape[1]))
         deg = aggregate_rows(h, rows, row_ptr, n)
-        return h / torch.clamp_min(deg[rows], 1e-12)
+        return h / torch.clamp_min(gather_rows(deg, rows, row_ptr), 1e-12)
 
     def forward(self, plan: GTNPlan, x: torch.Tensor) -> torch.Tensor:
         c, n = self.channels, plan.n_nodes

@@ -4,7 +4,8 @@ Port of ``graphneuralnetwork_tpu/ops/segment.py``. ``segment_sum``,
 ``segment_mean``, ``segment_max`` and ``segment_softmax`` are plain PyTorch
 on every device, as the reference leaves them to XLA. ``edge_softmax``
 follows the reference's kernel branch: the segment-max kernel (K2) on the
-detached scores, then the denominator through ``aggregate_edges`` (K1).
+detached scores, then the denominator through ``aggregate_edges`` (K1),
+read back per edge by ``gather_receivers`` (whose backward is K1 again).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from .aggregate import aggregate_edges
+from .aggregate import aggregate_edges, gather_receivers
 from .cuda.segment_max_kernel import segment_max as _segment_max_kernel
 
 
@@ -98,5 +99,5 @@ def edge_softmax(graph, scores, mask=None, stable: bool = True):
         s2 = s2 - seg_max[graph.receivers]
     e = torch.where(m2, torch.exp(s2), 0.0)
     denom = torch.clamp_min(aggregate_edges(graph, e), 1e-16)
-    alpha = (e / denom[graph.receivers]).to(scores.dtype)
+    alpha = (e / gather_receivers(graph, denom)).to(scores.dtype)
     return alpha[:, 0] if squeeze else alpha

@@ -1,11 +1,11 @@
 """SpMM and SDDMM on padded COO edge lists.
 
 ``spmm(graph, x)`` computes ``out[r] = Σ_{(s,r) ∈ E} w_sr · x[s]``: on a
-``Graph``, a gather ``x[senders] * w`` feeding ``aggregate_edges`` (K1 on
-the card); autograd composes the backward: d x is a scatter of
-``g[receivers] * w`` by sender, d w the per-edge dot ``g[recv] · x[send]``.
-On a ``HybridGraph``, the dense tiles' ``bcsr_spmm`` (K3) plus the same
-COO SpMM over the remainder.
+``Graph``, K1's gathered form (``aggregate_gathered``: the sender gather
+read inside the kernel, no [E, F] copy), whose backward is K1 again over
+the graph's sender-sorted transpose for d x, and the per-edge dot
+``g[recv] · x[send]`` for d w. On a ``HybridGraph``, the dense tiles'
+``bcsr_spmm`` (K3) plus the same COO SpMM over the remainder.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import torch
 
 from ..core.bcsr import HybridGraph
 from ..core.graph import Graph
-from .aggregate import aggregate_edges, aggregate_rows
+from .aggregate import aggregate_gathered, aggregate_rows
 from .bcsr_spmm import bcsr_spmm
 
 
@@ -22,8 +22,9 @@ def spmm(graph: Graph | HybridGraph, x: torch.Tensor) -> torch.Tensor:
     """out[r] = Σ_e w_e · x[senders_e] for receivers_e == r; [N, F]."""
     if hasattr(graph, "bcsr"):
         return bcsr_spmm(graph.bcsr, x, graph.bcsr_t) + spmm(graph.rem, x)
-    gathered = x[graph.senders] * graph.edge_weight[:, None].to(x.dtype)
-    return aggregate_edges(graph, gathered)
+    # each product as x[senders] * w.to(x.dtype): the weight rounded to
+    # x's type first
+    return aggregate_gathered(graph, x, graph.edge_weight, round_weight=True)
 
 
 def spmm_weighted(graph: Graph, edge_weight: torch.Tensor,
@@ -36,15 +37,13 @@ def spmm_weighted(graph: Graph, edge_weight: torch.Tensor,
     cast to ``x``'s type once, where they enter the aggregation, so their
     gradients (per-edge dot products for ``w``) stay float32 as well.
     """
-    gathered = x[graph.senders].float()
     w = edge_weight.float()
     if w.ndim == 1:
-        return aggregate_edges(graph, (gathered * w[:, None]).to(x.dtype))
-    if gathered.ndim != 3:
+        return aggregate_gathered(graph, x, w)
+    if x.ndim != 3:
         raise ValueError("multi-head spmm expects x of shape [N, H, F]")
-    e, h, f = gathered.shape
-    vals = (gathered * w[:, :, None]).to(x.dtype)
-    out = aggregate_edges(graph, vals.reshape(e, h * f))
+    n, h, f = x.shape
+    out = aggregate_gathered(graph, x.reshape(n, h * f), w)
     return out.reshape(graph.n_nodes, h, f)
 
 

@@ -19,7 +19,10 @@ is timed with CUDA synchronisation (no profiler), then another is traced
 under ``torch.profiler``. Prints one JSON line: per block kind, wall ms per
 epoch (untraced and traced), device kernel ms per epoch, the device's busy
 share (kernel time over untraced wall time), kernel launches per epoch,
-and the kernels that take the most device time.
+the kernels that take the most device time, and the device ms per epoch
+of three families by name: PyTorch's indexing backward (the backward of an
+index gather, which sorts its indices), its sorts, and the port's K1
+(``segment_sum_kernel``).
 Needs a CUDA device.
 """
 
@@ -43,6 +46,9 @@ from graphneuralnetwork_tpu_torch.train.scan_loop import (
 from graphneuralnetwork_tpu_torch.train.schedule import make_optimizer
 
 WARMUP, EPOCHS, TOP = 20, 50, 8
+#: kernel families whose device time is summed by name (a substring)
+FAMILIES = {"indexing_backward": "indexing_backward",
+            "sort": "Sort", "K1": "segment_sum_kernel"}
 
 
 def _measure(block) -> dict:
@@ -80,6 +86,9 @@ def _measure(block) -> dict:
         "top_kernels_ms_per_epoch": {
             name[:80]: us / 1e3 / EPOCHS
             for name, us in by_name.most_common(TOP)},
+        "families_ms_per_epoch": {
+            fam: sum(us for name, us in by_name.items() if key in name)
+            / 1e3 / EPOCHS for fam, key in FAMILIES.items()},
     }
 
 

@@ -217,8 +217,11 @@ def test_han_dropout_draws_from_the_generator(han_data):
     assert not torch.equal(run(3), run(4))
 
 
-#: kernels of one HAN epoch (forward and backward), by layout
-EPOCH_LAUNCHES = {"coo": {"K1": 4, "K2": 2},
+#: kernels of one HAN epoch (forward and backward), by layout; on COO
+#: each metapath's GAT layer runs K1 twice forward (denominator,
+#: aggregation) and four times backward (the aggregation's d x, the
+#: denominator's read-back, the sender and receiver score gathers)
+EPOCH_LAUNCHES = {"coo": {"K1": 12, "K2": 2},
                   "hybrid": {"K4": 2, "K5": 2, "K6": 2}}
 
 
