@@ -8,6 +8,23 @@ Phases, each printing one JSON line:
   1. device  — needs a CUDA device; prints the card's name and power limit
                as ``nvidia-smi --query-gpu=name,power.limit`` gives them;
   2. build   — compiles every kernel of ``csrc/`` with nvcc, in parallel;
+  2b. native — builds the C++ host engine of ``native/`` (g++, OpenMP) and
+               reports its build seconds, thread count and the host CPU
+               beside the card; times each of its entry points against
+               its numpy path on the card's host at the sizes the CLI and
+               the kernel phases give it (``build_graph``'s arrays and
+               ``sym_normalize_weights`` on the 2M-edge community graph,
+               byte-equal and within 1e-6; DeepWalk's walks at 2,405
+               nodes; ``multihop_sampling`` at the ``SageConfig``
+               defaults; Struc2Vec's distances at 500 nodes, within 1e-9
+               with the same layer counts; ``read_edgelist`` on a numeric
+               edge list of 2,405 nodes, the same ids and vocabulary),
+               checks that its walks and draws follow edges and repeat for
+               a seed, and trains ``--model metapath2vec --dataset`` on an
+               empty directory (the JData loader's synthetic actions):
+               no launch, a falling loss. Every later phase's host
+               samplers and graph builds of 16,384 edges or more take
+               this engine, as JAX's do;
   3. kernels — holds each kernel against its plain PyTorch version, on the
                card, at the shapes the main path gives it and at larger
                shapes, and times kernel, plain version and, where one
@@ -187,10 +204,12 @@ import collections
 import dataclasses
 import faulthandler
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -448,6 +467,208 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": build.kernel_names(), "ptxas": ptxas,
           "k1_ptxas": _ptxas_by_function(logs.get("spmm_kernel", ""))})
+
+
+def _host_s(fn, reps: int = 3):
+    """(the last result, the median host seconds) of ``reps`` calls."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return out, statistics.median(times)
+
+
+def _follows_edges(indptr, indices, src, dst) -> bool:
+    """Whether every step ``src[i] -> dst[i]`` is an edge of the CSR, or
+    stays at a node without neighbours."""
+    src, dst = np.asarray(src, np.int64), np.asarray(dst, np.int64)
+    n = len(indptr) - 1
+    senders = np.repeat(np.arange(n), np.diff(indptr))
+    deg = np.diff(indptr)[src]
+    on_edge = np.isin(src * n + dst, senders * n + indices)
+    return bool(np.all(np.where(deg > 0, on_edge, dst == src)))
+
+
+def _engine_row(entry, engine, numpy_path, size, **checks) -> dict:
+    """Time ``engine`` against ``numpy_path`` (host seconds, median of
+    three); returns both results and the row emitted."""
+    got, engine_s = _host_s(engine)
+    want, numpy_s = _host_s(numpy_path)
+    row = {"phase": "native", "entry": entry, "size": size,
+           "engine_s": engine_s, "numpy_s": numpy_s,
+           "numpy_over_engine": numpy_s / engine_s, **checks}
+    return got, want, row
+
+
+def phase_native(card: str) -> None:
+    """The C++ host engine (``sampling/native.py``), built here from the
+    checkout's ``native/*.cpp``, on the card's host: its build seconds,
+    thread count and the host CPU beside the card; each entry point timed
+    against its numpy path at the sizes the CLI and the kernel phases give
+    it, with its result checked against that path; the engine's walks and
+    neighbour draws checked to follow edges and to repeat for a seed; and
+    the JData pipeline (``--model metapath2vec --dataset`` on an empty
+    directory: the loader's synthetic action table) through the CLI."""
+    from graphneuralnetwork_tpu_torch.core import graph as core_graph
+    from graphneuralnetwork_tpu_torch.data import edgelist
+    from graphneuralnetwork_tpu_torch.sampling import native, struc2vec
+    from graphneuralnetwork_tpu_torch.sampling.neighbor import (
+        sample_neighbors)
+    from graphneuralnetwork_tpu_torch.sampling.walks import uniform_walks
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    log = native.build()
+    build_s = time.perf_counter() - t0
+    emit({"phase": "native", "card": card, "build_s": build_s,
+          "compiled_now": log is not None,
+          "library": str(native.library_path().name),
+          "num_threads": native.num_threads(),
+          "host_cpu": native.host_cpu()[0],
+          "host_isa": [f for f in ("avx2", "avx512f", "avx512_bf16",
+                                   "amx_tile")
+                       if f in native.host_cpu()[1].split()],
+          "host_cores": len(os.sched_getaffinity(0))})
+    rows = []
+
+    # the graph build and GCN's normalisation at the kernels' 2M-edge size
+    big = ATTEND_LARGE
+    s, r = _community_graph(big["n"], big["e"], big["comm"])
+    n = big["n"]
+    w = np.random.default_rng(1).random(len(s)).astype(np.float32)
+    e_pad = -(-len(s) // core_graph.EDGE_BLOCK) * core_graph.EDGE_BLOCK
+    s32, r32 = s.astype(np.int32), r.astype(np.int32)
+    got, want, row = _engine_row(
+        "build_graph", lambda: native.build_graph_native(
+            s32, r32, w, n, e_pad, core_graph.ROW_BLOCK,
+            core_graph.EDGE_BLOCK),
+        lambda: core_graph._build_arrays(s32, r32, w, n, e_pad),
+        {"nodes": n, "edges": len(s)})
+    if not (all(np.array_equal(a, b) for a, b in zip(got[:5], want[:5]))
+            and got[5] == want[5]):
+        raise AssertionError("native build differs from the numpy build")
+    rows.append({**row, "byte_equal": True})
+    got, want, row = _engine_row(
+        "sym_normalize_weights",
+        lambda: core_graph.sym_normalize_weights(s32, r32, n, w),
+        lambda: core_graph._normalized(s32, r32, w, n, "sym"),
+        {"nodes": n, "edges": len(s)})
+    err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                       1e-30)))
+    if err > 1e-6:
+        raise AssertionError(f"native sym weights off by rtol {err}")
+    rows.append({**row, "max_rel_err": err, "rtol": 1e-6})
+    del s, r, s32, r32, w, got, want
+
+    # DeepWalk's walks at the Wiki edge list's size: 80 walks of 10 a node
+    wiki = synthetic_smallworld(n_nodes=WIKI_NODES, k=WIKI_K, seed=0)
+    indptr, indices, _ = csr_from_edges(wiki.senders, wiki.receivers,
+                                        WIKI_NODES)
+    starts = np.tile(np.arange(WIKI_NODES), 80)
+    walks, numpy_walks, row = _engine_row(
+        "uniform_walks",
+        lambda: uniform_walks(indptr, indices, starts, 10,
+                              np.random.default_rng(0)),
+        lambda: uniform_walks(indptr, indices, starts, 10,
+                              np.random.default_rng(0), use_native=False),
+        {"walks": len(starts), "length": 10, "nodes": WIKI_NODES})
+    again = uniform_walks(indptr, indices, starts, 10,
+                          np.random.default_rng(0))
+    follows = _follows_edges(indptr, indices, walks[:, :-1].ravel(),
+                             walks[:, 1:].ravel())
+    if not (follows and np.array_equal(walks, again)
+            and walks.shape == numpy_walks.shape):
+        raise AssertionError(f"native walks: follow edges {follows}, "
+                             "repeat for a seed "
+                             f"{np.array_equal(walks, again)}")
+    rows.append({**row, "follow_edges": True, "same_seed_same_walks": True})
+
+    # multihop_sampling at the SageConfig defaults on the Pubmed synthetic
+    data = load_pubmed(seed=0)
+    n_p = data.features.shape[0]
+    indptr, indices, _ = csr_from_edges(data.senders, data.receivers, n_p)
+    batch = data.train_idx[:64]
+
+    def numpy_hops():
+        rng, hops = np.random.default_rng(0), [batch.astype(np.int32)]
+        for f in (10, 10):
+            hops.append(sample_neighbors(hops[-1], f, indptr, indices, rng,
+                                         use_native=False))
+        return hops
+
+    hops, want, row = _engine_row(
+        "multihop_sampling",
+        lambda: multihop_sampling(batch, (10, 10), indptr, indices,
+                                  np.random.default_rng(0)),
+        numpy_hops, {"batch": 64, "fanouts": [10, 10], "nodes": n_p})
+    again = multihop_sampling(batch, (10, 10), indptr, indices,
+                              np.random.default_rng(0))
+    follows = all(_follows_edges(indptr, indices, np.repeat(a, 10), b)
+                  for a, b in zip(hops[:-1], hops[1:]))
+    if not (follows and all(np.array_equal(a, b)
+                            for a, b in zip(hops, again))
+            and [len(h) for h in hops] == [len(h) for h in want]):
+        raise AssertionError("native neighbour draws: follow edges "
+                             f"{follows}")
+    rows.append({**row, "follow_edges": True, "same_seed_same_hops": True})
+
+    # Struc2Vec's distances at the CLI's 500-node graph
+    g500 = load_edgelist(seed=0)
+    indptr, indices, _ = csr_from_edges(g500.senders, g500.receivers,
+                                        g500.n_nodes)
+    pairs = struc2vec.candidate_pairs(indptr, g500.n_nodes)[1]
+    args = (indptr, indices, g500.n_nodes, 3, pairs[:, 0], pairs[:, 1])
+    (f, nl), (f_np, nl_np), row = _engine_row(
+        "struc2vec_distances",
+        lambda: native.struc2vec_distances_native(*args),
+        lambda: struc2vec._numpy_distances(*args),
+        {"pairs": len(pairs), "nodes": g500.n_nodes, "k_max": 3})
+    err = float(np.max(np.abs(f - f_np) / np.maximum(np.abs(f_np), 1e-30)))
+    if not (np.array_equal(nl, nl_np) and err <= 1e-9):
+        raise AssertionError(f"native Struc2Vec distances: layers equal "
+                             f"{np.array_equal(nl, nl_np)}, rtol {err}")
+    rows.append({**row, "max_rel_err": err, "rtol": 1e-9,
+                 "same_layers": True})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # read_edgelist on the 2,405-node graph as a numeric edge list
+        path = f"{tmp}/wiki.edgelist"
+        half = len(wiki.senders) // 2
+        with open(path, "w") as fh:
+            fh.writelines(f"{a} {b}\n" for a, b in
+                          zip(wiki.senders[:half], wiki.receivers[:half]))
+        got, (vocab, s_py, r_py, _), row = _engine_row(
+            "read_edgelist", lambda: edgelist.read_edgelist(
+                path, directed=True),
+            lambda: edgelist._read_tokens(path, False),
+            {"edges": half, "nodes": WIKI_NODES})
+        if not (np.array_equal(got.senders, s_py)
+                and np.array_equal(got.receivers, r_py)
+                and got.vocab.idx_to_token == vocab.idx_to_token):
+            raise AssertionError("native edge-list parse differs from the "
+                                 "Python reader")
+        rows.append({**row, "same_ids_and_vocab": True})
+        for row in rows:
+            emit(row)
+
+        # the JData pipeline on the loader's synthetic action table
+        reset_launches()
+        res = cli_main(["--model", "metapath2vec", "--dataset", tmp,
+                        "--device", DEVICE, "--quiet"])
+        launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"jdata: kernels launched {launches}")
+    if not (res["final_loss"] < res["initial_loss"]
+            and res["embed_shape"] == [350, 128]):
+        raise AssertionError(f"jdata: {res}")
+    emit({"phase": "native", "run": "metapath2vec_jdata",
+          "dataset": "empty directory (synthetic JData actions)",
+          "initial_loss": res["initial_loss"],
+          "final_loss": res["final_loss"],
+          "embed_shape": res["embed_shape"], "epochs": res["epochs"],
+          "seconds": res["seconds"], "launches": 0})
+    emit({"phase": "native", "seconds": time.perf_counter() - t_phase})
 
 
 def _large_graph(gen):
@@ -3512,8 +3733,9 @@ def previous_design(cases) -> dict:
 
 
 def main() -> None:
-    phase_device()
+    card = phase_device()
     phase_build()
+    phase_native(card)
     cora = load_cora(seed=0, layout="coo", device=DEVICE)
     # the GAT data as the CLI loads them: auto layout -> hybrid, clustered,
     # unit weights

@@ -38,7 +38,10 @@ trains the walk embedders (``models/embedding.py``, plain PyTorch, no
 kernel; the skip-gram or SDNE epoch captured as a CUDA graph on the card)
 at the reference's defaults on the 500-node synthetic small-world graph
 (``--dataset``: an edge-list file; metapath2vec: the synthetic user-item
-graph only), ``--set`` over any field of the model's config
+graph, or with ``--dataset DIR`` the JData pipeline on DIR's processed
+``data_action.csv``, read with pandas, or the JData loader's synthetic
+action table where DIR holds none), ``--set`` over any field of the
+model's config
 (``device_walks=true`` draws DeepWalk's, Node2vec's and MetaPath2Vec's
 walks on the device). ``--model gatne`` trains GATNE
 (``models/gatne.py``; dim 64, Adam lr 1e-2, 5 epochs; the epoch captured
@@ -134,7 +137,8 @@ def main(argv=None) -> dict:
                          "train.pkl or ACM.mat path or 'imdb'; the walk "
                          "embedders but metapath2vec: an edge-list file; "
                          "gatne: a directory of train.txt, valid.txt and "
-                         "test.txt")
+                         "test.txt; metapath2vec: a directory of processed "
+                         "JData CSVs")
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--set", action="append", metavar="KEY=VALUE",
@@ -195,10 +199,6 @@ def main(argv=None) -> dict:
     if name == "gtn":
         return _gtn(args)
     if name in _EMBEDDERS:
-        if name == "metapath2vec" and args.dataset is not None:
-            ap.error("--model metapath2vec --dataset (the JData pipeline) "
-                     "is not ported yet; without --dataset it trains on the "
-                     "synthetic user-item graph")
         return _embed(name, args)
     if name in _LINKPRED:
         return _linkpred(name, args)
@@ -433,7 +433,17 @@ def _embed(name, args) -> dict:
         cfg = _apply_overrides(embedding.WalkEmbedConfig(
             window=4, num_negatives=4, batch_size=512,
             epochs=args.epochs or 5, seed=args.seed), args.set)
-        emb, history = embedding.run_metapath2vec(cfg=cfg, device=device)
+        graph = {}
+        if args.dataset is not None:
+            # the JData pipeline: a directory of processed CSVs, or the
+            # loader's synthetic action table where it holds none
+            from .data.jdata import load_jdata
+
+            jd = load_jdata(args.dataset, seed=args.seed)
+            graph = dict(hetero=jd.hetero, metapath=jd.metapath,
+                         type_offsets=jd.type_offsets)
+        emb, history = embedding.run_metapath2vec(cfg=cfg, device=device,
+                                                  **graph)
     else:
         data = load_edgelist(path=args.dataset, seed=args.seed)
         config = {"line": embedding.LINEConfig,

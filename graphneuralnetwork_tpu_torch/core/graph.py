@@ -1,6 +1,8 @@
 """Static-shape graph container and host-side builders.
 
-Port of ``graphneuralnetwork_tpu/core/graph.py`` (numpy build path). The
+Port of the JAX package's ``core/graph.py``. A graph of ``NATIVE_EDGES``
+edges or more is built and normalised on the host by the C++ engine
+(``sampling/native.py``), as in JAX, byte-exact with the numpy build. The
 on-device representation is the same padded, receiver-sorted COO edge list:
 
   * ``senders`` / ``receivers``: int32[E_pad], sorted by receiver;
@@ -32,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..sampling import native
 from .device import resolve_device
 
 #: Edge lists are padded to a multiple of the JAX SpMM kernel's edge chunk,
@@ -50,6 +53,9 @@ ROW_BLOCK = 128
 #: finish.
 LONG_ROW_EDGES = 32
 LONG_ROW_MEANS = 4
+#: Graphs of this many edges or more are built and normalised by the C++
+#: engine (JAX's threshold).
+NATIVE_EDGES = 16384
 
 
 def _round_up(x: int, m: int) -> int:
@@ -175,6 +181,29 @@ def csr_offsets(receivers: np.ndarray, n_nodes: int) -> np.ndarray:
     return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
 
 
+def _build_arrays(senders, receivers, edge_weight, n_nodes: int,
+                  e_pad: int) -> tuple:
+    """The numpy build of ``native.build_graph_native`` (below
+    ``NATIVE_EDGES``, and the engine's reference): (s, r, w, chunk_off,
+    chunk_cnt, max_chunks), the edges stably sorted by receiver and padded
+    to ``e_pad`` with zero-weight self loops on node ``n_nodes-1``."""
+    n_edges = len(senders)
+    if n_edges > 0:
+        order = np.argsort(receivers, kind="stable")
+        senders, receivers, edge_weight = (
+            senders[order], receivers[order], edge_weight[order])
+    s = np.zeros(e_pad, dtype=np.int32)
+    r = np.zeros(e_pad, dtype=np.int32)
+    w = np.zeros(e_pad, dtype=np.float32)
+    s[:n_edges] = senders
+    r[:n_edges] = receivers
+    w[:n_edges] = edge_weight
+    if n_edges < e_pad:
+        s[n_edges:] = n_nodes - 1 if n_nodes > 0 else 0
+        r[n_edges:] = n_nodes - 1 if n_nodes > 0 else 0
+    return (s, r, w) + compute_chunk_spans(r, n_nodes)
+
+
 def build_graph(
     senders: np.ndarray,
     receivers: np.ndarray,
@@ -198,22 +227,14 @@ def build_graph(
     e_pad = max(_round_up(max(n_edges, 1), EDGE_BLOCK), EDGE_BLOCK)
     n_pad = max(_round_up(max(n_nodes, 1), NODE_BLOCK), NODE_BLOCK)
 
-    if n_edges > 0:
-        order = np.argsort(receivers, kind="stable")
-        senders, receivers, edge_weight = (
-            senders[order], receivers[order], edge_weight[order])
-
-    s = np.zeros(e_pad, dtype=np.int32)
-    r = np.zeros(e_pad, dtype=np.int32)
-    w = np.zeros(e_pad, dtype=np.float32)
-    s[:n_edges] = senders
-    r[:n_edges] = receivers
-    w[:n_edges] = edge_weight
-    if n_edges < e_pad:
-        s[n_edges:] = n_nodes - 1 if n_nodes > 0 else 0
-        r[n_edges:] = n_nodes - 1 if n_nodes > 0 else 0
-
-    lo, cnt, max_chunks = compute_chunk_spans(r, n_nodes)
+    if n_edges >= NATIVE_EDGES:
+        arrays = native.build_graph_native(senders, receivers, edge_weight,
+                                           n_nodes, e_pad, ROW_BLOCK,
+                                           EDGE_BLOCK)
+    else:
+        arrays = _build_arrays(senders, receivers, edge_weight, n_nodes,
+                               e_pad)
+    s, r, w, lo, cnt, max_chunks = arrays
     return Graph(
         senders=torch.from_numpy(s),
         receivers=torch.from_numpy(r),
@@ -252,30 +273,45 @@ def _in_degree(receivers, n_nodes, edge_weight):
     return deg
 
 
+def _normalized(senders, receivers, edge_weight, n_nodes: int,
+                mode: str) -> np.ndarray:
+    """``native.normalize_edge_weights_native`` in numpy (below
+    ``NATIVE_EDGES``, and the engine's reference)."""
+    deg = _in_degree(receivers, n_nodes, edge_weight)
+    if mode == "sym":
+        d_inv_sqrt = np.where(deg > 0, 1.0 / np.sqrt(np.maximum(deg, 1e-12)),
+                              0.0)
+        return (edge_weight * d_inv_sqrt[senders]
+                * d_inv_sqrt[receivers]).astype(np.float32)
+    d_inv = np.where(deg > 0, 1.0 / np.maximum(deg, 1e-12), 0.0)
+    return (edge_weight * d_inv[receivers]).astype(np.float32)
+
+
 def sym_normalize_weights(
     senders: np.ndarray, receivers: np.ndarray, n_nodes: int,
     edge_weight: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """w_ij = d_i^-1/2 * d_j^-1/2 — the GCN propagation weights (the caller
-    has added self loops)."""
+    has added self loops); on the C++ engine from ``NATIVE_EDGES``
+    edges."""
     if edge_weight is None:
         edge_weight = np.ones(len(senders), dtype=np.float32)
-    deg = _in_degree(receivers, n_nodes, edge_weight)
-    d_inv_sqrt = np.where(deg > 0, 1.0 / np.sqrt(np.maximum(deg, 1e-12)), 0.0)
-    return (edge_weight * d_inv_sqrt[senders]
-            * d_inv_sqrt[receivers]).astype(np.float32)
+    normalize = (native.normalize_edge_weights_native
+                 if len(senders) >= NATIVE_EDGES else _normalized)
+    return normalize(senders, receivers, edge_weight, n_nodes, "sym")
 
 
 def row_normalize_weights(
     senders: np.ndarray, receivers: np.ndarray, n_nodes: int,
     edge_weight: Optional[np.ndarray] = None,
 ) -> np.ndarray:
-    """w_ij = d_i^-1 — random-walk normalisation D^-1 A over incoming edges."""
+    """w_ij = d_i^-1 — random-walk normalisation D^-1 A over incoming
+    edges; on the C++ engine from ``NATIVE_EDGES`` edges."""
     if edge_weight is None:
         edge_weight = np.ones(len(senders), dtype=np.float32)
-    deg = _in_degree(receivers, n_nodes, edge_weight)
-    d_inv = np.where(deg > 0, 1.0 / np.maximum(deg, 1e-12), 0.0)
-    return (edge_weight * d_inv[receivers]).astype(np.float32)
+    normalize = (native.normalize_edge_weights_native
+                 if len(senders) >= NATIVE_EDGES else _normalized)
+    return normalize(senders, receivers, edge_weight, n_nodes, "row")
 
 
 def row_normalize_features(x: np.ndarray) -> np.ndarray:

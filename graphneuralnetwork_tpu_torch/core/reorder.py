@@ -89,3 +89,14 @@ def relabel_edges(perm: np.ndarray, senders: np.ndarray,
     inv = invert_permutation(np.asarray(perm, np.int64))
     return (inv[np.asarray(senders, np.int64)].astype(np.int32),
             inv[np.asarray(receivers, np.int64)].astype(np.int32))
+
+
+def bandwidth_stats(senders: np.ndarray, receivers: np.ndarray) -> dict:
+    """Locality diagnostics: the distribution of |s - r| over the edge
+    list (max, mean, 95th percentile)."""
+    d = np.abs(np.asarray(senders, np.int64) -
+               np.asarray(receivers, np.int64))
+    if len(d) == 0:
+        return dict(max=0, mean=0.0, p95=0)
+    return dict(max=int(d.max()), mean=float(d.mean()),
+                p95=int(np.percentile(d, 95)))

@@ -7,6 +7,7 @@ from .acm import (  # noqa: F401
     load_imdb_han,
     synthetic_acm,
 )
+from .jdata import JData, load_jdata, process_jdata  # noqa: F401
 from .planetoid import (  # noqa: F401
     NodeClassificationData,
     load_citeseer,

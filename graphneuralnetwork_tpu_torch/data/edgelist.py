@@ -5,10 +5,10 @@ Port of ``graphneuralnetwork_tpu/data/edgelist.py``:
 node names mapped to contiguous ids, index 0 ``<UNK>``),
 ``synthetic_smallworld`` (the deterministic stand-in for the reference's
 airport and Wiki edge lists) and ``load_edgelist``. The same file or seed
-gives the same arrays. JAX parses numeric files with its C++ engine and
-rebuilds the vocabulary vectorised; the port parses in Python and takes
-the same vectorised rebuild (``_vocab_from_int_tokens``) when every token
-is a plain integer, which gives the ids of the Python path. GATNE's
+gives the same arrays. Numeric files are parsed by the C++ engine
+(``sampling/native.py``) and their vocabulary rebuilt vectorised
+(``_vocab_from_int_tokens``), as in JAX, which gives the ids of the Python
+path that reads any other file as strings. GATNE's
 multiplex half: ``MultiplexData`` (training edges per edge type with
 held-out true and false edges), ``synthetic_multiplex`` (a community
 multiplex graph), ``read_multiplex_dir`` (``train.txt``, ``valid.txt``,
@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..core.hetero import Vocab
+from ..sampling import native
 
 
 @dataclass(frozen=True)
@@ -55,18 +56,9 @@ def _vocab_from_int_tokens(a: np.ndarray, b: np.ndarray) -> tuple:
     return vocab, ids[0::2], ids[1::2]
 
 
-def _plain_int(token: str) -> bool:
-    """Whether ``token`` is the decimal form of an integer (``str(int(t))
-    == t``), so that the integer rebuild keeps its string."""
-    body = token[1:] if token.startswith("-") else token
-    return body.isdigit() and str(int(token)) == token
-
-
-def read_edgelist(path: str, weighted: bool = False,
-                  directed: bool = False) -> EdgeListData:
-    """Whitespace edge list (``a b [w]`` a line; lines with fewer than two
-    fields are skipped) -> contiguous ids; an undirected graph stores both
-    directions, the reverse edges after the forward ones."""
+def _read_tokens(path: str, weighted: bool) -> tuple:
+    """The Python path of ``read_edgelist``: (vocab, ids of the first
+    column, ids of the second, weights)."""
     tokens: List[Tuple[str, str, float]] = []
     with open(path) as f:
         for line in f:
@@ -75,16 +67,25 @@ def read_edgelist(path: str, weighted: bool = False,
                 continue
             wv = float(parts[2]) if (weighted and len(parts) > 2) else 1.0
             tokens.append((parts[0], parts[1], wv))
+    vocab = Vocab([t for a, b, _ in tokens for t in (a, b)])
+    s = np.array([vocab[a] for a, _, _ in tokens], np.int32)
+    r = np.array([vocab[b] for _, b, _ in tokens], np.int32)
     w = np.array([x for _, _, x in tokens], np.float32)
-    if tokens and all(_plain_int(a) and _plain_int(b)
-                      for a, b, _ in tokens):
-        vocab, s, r = _vocab_from_int_tokens(
-            np.array([int(a) for a, _, _ in tokens], np.int64),
-            np.array([int(b) for _, b, _ in tokens], np.int64))
+    return vocab, s, r, w
+
+
+def read_edgelist(path: str, weighted: bool = False,
+                  directed: bool = False) -> EdgeListData:
+    """Whitespace edge list (``a b [w]`` a line; lines with fewer than two
+    fields are skipped) -> contiguous ids; an undirected graph stores both
+    directions, the reverse edges after the forward ones. Numeric files
+    are parsed by the C++ engine."""
+    parsed = native.parse_edgelist_native(path, weighted=weighted)
+    if parsed is not None:
+        pa, pb, w = parsed
+        vocab, s, r = _vocab_from_int_tokens(pa, pb)
     else:
-        vocab = Vocab([t for a, b, _ in tokens for t in (a, b)])
-        s = np.array([vocab[a] for a, _, _ in tokens], np.int32)
-        r = np.array([vocab[b] for _, b, _ in tokens], np.int32)
+        vocab, s, r, w = _read_tokens(path, weighted)
     if not directed:
         s, r, w = (np.concatenate([s, r]), np.concatenate([r, s]),
                    np.concatenate([w, w]))

@@ -8,7 +8,8 @@ autoencoder over dense adjacency rows. Each returns (the node embedding
 as a numpy array, the loss history). Every entry point runs on ``cuda``
 unless ``device`` says otherwise; the host builders consume the numpy
 ``rng`` of ``cfg.seed`` in JAX's order, so a CPU run's walks, corpus and
-batches are JAX's (its walkers' numpy paths: the port has no C++ engine).
+batches are JAX's (DeepWalk's walks and Struc2Vec's distances on the C++
+engine, as JAX's).
 ``device_walks`` draws DeepWalk's, Node2vec's and MetaPath2Vec's walks on
 the device from a ``torch.Generator`` instead.
 """

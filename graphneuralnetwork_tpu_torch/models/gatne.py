@@ -9,8 +9,8 @@ padded context and negative rows scored against a decoder table
 evaluation of every node under every edge type (``evaluate_gatne``).
 
 The host builds everything from the numpy ``rng`` of ``cfg.seed`` in JAX's
-order, draw for draw (the walks by the numpy walker: the port has no C++
-engine). Training takes one of JAX's two loops:
+order, draw for draw (the walks on the C++ engine, as JAX's). Training
+takes one of JAX's two loops:
 
   * the host loop (the CPU's, as JAX's CPU backend runs it): each epoch
     shuffles the pairs (``minibatches``) and draws each batch's negatives

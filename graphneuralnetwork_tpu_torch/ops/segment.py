@@ -1,11 +1,12 @@
 """Segment reductions and segment softmax on padded edge lists.
 
 Port of ``graphneuralnetwork_tpu/ops/segment.py``. ``segment_sum``,
-``segment_mean``, ``segment_max`` and ``segment_softmax`` are plain PyTorch
-on every device, as the reference leaves them to XLA. ``edge_softmax``
-follows the reference's kernel branch: the segment-max kernel (K2) on the
-detached scores, then the denominator through ``aggregate_edges`` (K1),
-read back per edge by ``gather_receivers`` (whose backward is K1 again).
+``segment_sum_unsorted``, ``segment_mean``, ``segment_max`` and
+``segment_softmax`` are plain PyTorch on every device, as the reference
+leaves them to XLA. ``edge_softmax`` follows the reference's kernel
+branch: the segment-max kernel (K2) on the detached scores, then the
+denominator through ``aggregate_edges`` (K1), read back per edge by
+``gather_receivers`` (whose backward is K1 again).
 """
 
 from __future__ import annotations
@@ -25,6 +26,11 @@ def _expand(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 def segment_sum(data, segment_ids, num_segments: int):
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
     return out.index_add_(0, segment_ids, data)
+
+
+def segment_sum_unsorted(data, segment_ids, num_segments: int):
+    """``segment_sum`` over ids in any order (``index_add_`` needs none)."""
+    return segment_sum(data, segment_ids, num_segments)
 
 
 def segment_mean(data, segment_ids, num_segments: int, mask=None):

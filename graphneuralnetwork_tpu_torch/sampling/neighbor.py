@@ -1,17 +1,17 @@
-"""Fanout neighbour sampling on the host (numpy) for mini-batch GraphSAGE.
+"""Fanout neighbour sampling on the host for mini-batch GraphSAGE.
 
-Port of ``graphneuralnetwork_tpu/sampling/neighbor.py``: per hop, each
-frontier node draws ``fanout`` neighbours with replacement (fixed shapes);
-a node without neighbours repeats itself. The JAX ``sample_neighbors``
-prefers its C++ engine (``sampling/native.py``), whose draws come from
-another generator, and draws its seed from ``rng`` before it learns
-whether the engine exists. The port has no native engine yet: this numpy
-sampler is its only path, and it draws exactly what the JAX function draws
-with ``use_native=False`` from the same ``rng`` (nothing else). One
-difference: JAX's numpy path reads ``indices`` one past its end for a node
-without neighbours whose CSR row starts there (the last nodes, when they
-have none) and raises; the port clamps that read, whose value is never
-used.
+Port of the JAX package's ``sampling/neighbor.py``: per hop, each frontier
+node draws ``fanout`` neighbours with replacement (fixed shapes); a node
+without neighbours repeats itself. ``sample_neighbors`` draws from the C++
+engine (``sampling/native.py``) by default, as JAX's does: one seed drawn
+from ``rng`` and the engine's own generator, so the same ``rng`` gives the
+draws of JAX's engine, and ``multihop_sampling`` passes nothing, so the
+sampled GraphSAGE loops draw from it. With ``use_native=False`` the numpy
+sampler draws exactly what JAX's does with ``use_native=False`` from the
+same ``rng``, with one difference: JAX's numpy path reads ``indices`` one
+past its end for a node without neighbours whose CSR row starts there (the
+last nodes, when they have none) and raises; the port clamps that read,
+whose value is never used.
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ from __future__ import annotations
 from typing import List, Sequence
 
 import numpy as np
+
+from . import native
 
 
 def _take(indices, pos):
@@ -30,8 +32,14 @@ def _take(indices, pos):
 
 
 def sample_neighbors(nodes: np.ndarray, fanout: int, indptr, indices,
-                     rng: np.random.Generator) -> np.ndarray:
-    """[len(nodes) * fanout] int32 neighbours drawn with replacement."""
+                     rng: np.random.Generator,
+                     use_native: bool = True) -> np.ndarray:
+    """[len(nodes) * fanout] int32 neighbours drawn with replacement.
+    ``use_native`` draws on the C++ engine."""
+    if use_native:
+        return native.sample_neighbors_native(
+            indptr, indices, np.asarray(nodes, np.int64).ravel(), fanout,
+            int(rng.integers(0, 2**62)))
     nodes = np.asarray(nodes, np.int64).ravel()
     deg = (indptr[1:] - indptr[:-1])[nodes]
     off = (rng.random((len(nodes), fanout)) *

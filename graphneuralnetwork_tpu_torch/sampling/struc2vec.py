@@ -1,13 +1,13 @@
 """Struc2Vec: the structural-similarity multilayer graph and its
 layer-hopping walks (numpy, on the host).
 
-Port of ``graphneuralnetwork_tpu/sampling/struc2vec.py`` on its numpy
-distance path (JAX prefers its C++ engine's distances there):
+Port of the JAX package's ``sampling/struc2vec.py``:
 
   1. ``degree_rings``: each node's k-hop BFS rings as sorted degree
      sequences;
   2. DTW distances between the rings of candidate pairs with the cost
-     max(a, b) / min(a, b) - 1, summed over the layers;
+     max(a, b) / min(a, b) - 1, summed over the layers: on the C++
+     engine (``sampling/native.py``), as in JAX;
   3. ``degree_candidates``: each node's ~2 log2 n degree-nearest nodes;
   4. layer weights exp(-f_k(u, v)), one alias table a node and layer, and
      the layer-move probabilities from the count of weights above the
@@ -15,10 +15,11 @@ distance path (JAX prefers its C++ engine's distances there):
   5. ``Struc2VecWalker``: stay in the layer with ``stay_prob`` and step,
      else move up or down first.
 
-The DTW runs over many pairs at once (``_dtw_many``: the same cell
-recurrence, cell by cell, vectorised across pairs), which gives the
-numbers of ``dtw_distance`` bit for bit: every cell is one addition of its
-cost to an exact minimum. The walker's steps are vectorised likewise; the
+The numpy distances the tests hold the engine against
+(``_numpy_distances``) run the DTW over many pairs at once (``_dtw_many``:
+the same cell recurrence, cell by cell, vectorised across pairs), which
+gives the numbers of ``dtw_distance`` bit for bit: every cell is one
+addition of its cost to an exact minimum. The walker's steps are vectorised likewise; the
 same layers and ``rng`` give JAX's walks draw for draw.
 """
 
@@ -28,6 +29,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from . import native
 from .alias import ConcatAliasTables
 from .neighbor import _take
 
@@ -128,13 +130,11 @@ def degree_candidates(deg: np.ndarray, n_candidates: int
     return out
 
 
-def build_multilayer_graph(
-    indptr, indices, n_nodes: int, *,
-    k_max: int = 3, n_candidates: int | None = None,
-) -> List[Dict[int, List[Tuple[int, float]]]]:
-    """layers[k][u] = [(v, exp(-f_k(u, v)))] over u's candidates v, f_k
-    the DTW distances of their rings summed over layers 0..k (a pair whose
-    rings stop earlier has fewer layers)."""
+def candidate_pairs(indptr, n_nodes: int, n_candidates: int | None = None
+                    ) -> tuple:
+    """(each node's degree-nearest candidates, [P, 2] int32 the sorted
+    unique pairs (u < v) of a node and a candidate); ``n_candidates``
+    defaults to max(int(2 log2 n), 2)."""
     if n_candidates is None:
         n_candidates = max(int(2 * np.log2(max(n_nodes, 2))), 2)
     deg = (indptr[1:] - indptr[:-1]).astype(np.int64)
@@ -144,18 +144,41 @@ def build_multilayer_graph(
         for v in cands[u]:
             v = int(v)
             pair_set.add((u, v) if u < v else (v, u))
-    pairs = sorted(pair_set)
+    return cands, np.array(sorted(pair_set), np.int32).reshape(-1, 2)
 
+
+def _numpy_distances(indptr, indices, n_nodes: int, k_max: int, pu, pv
+                     ) -> tuple:
+    """``native.struc2vec_distances_native`` in numpy: (f [P, k_max+1]
+    float64, the ring distances of pair p summed over layers 0..k, -1 past
+    its layers; n_layers [P] int32, the fewer rings of its two nodes)."""
     rings = degree_rings(indptr, indices, n_nodes, k_max)
-    jobs = [(p, k) for p, (a, b) in enumerate(pairs)
-            for k in range(min(len(rings[a]), len(rings[b])))]
-    dist = _dtw_many([rings[pairs[p][0]][k] for p, k in jobs],
-                     [rings[pairs[p][1]][k] for p, k in jobs])
+    pu, pv = np.asarray(pu, np.int64), np.asarray(pv, np.int64)
+    n_layers = np.array([min(len(rings[a]), len(rings[b]))
+                         for a, b in zip(pu, pv)], np.int32)
+    jobs = [(p, k) for p in range(len(pu)) for k in range(n_layers[p])]
+    dist = _dtw_many([rings[pu[p]][k] for p, k in jobs],
+                     [rings[pv[p]][k] for p, k in jobs])
+    f = np.full((len(pu), k_max + 1), -1.0)
+    for (p, k), d in zip(jobs, dist):
+        f[p, k] = (f[p, k - 1] if k else 0.0) + d
+    return f, n_layers
+
+
+def build_multilayer_graph(
+    indptr, indices, n_nodes: int, *,
+    k_max: int = 3, n_candidates: int | None = None,
+) -> List[Dict[int, List[Tuple[int, float]]]]:
+    """layers[k][u] = [(v, exp(-f_k(u, v)))] over u's candidates v, f_k
+    the DTW distances of their rings summed over layers 0..k (a pair whose
+    rings stop earlier has fewer layers); the distances on the C++
+    engine."""
+    cands, pairs = candidate_pairs(indptr, n_nodes, n_candidates)
+    f_mat, n_layers = native.struc2vec_distances_native(
+        indptr, indices, n_nodes, k_max, pairs[:, 0], pairs[:, 1])
     dist_cache: Dict[Tuple[int, int], List[float]] = {
-        pair: [] for pair in pairs}
-    for (p, _), d in zip(jobs, dist):
-        f = dist_cache[pairs[p]]
-        f.append((f[-1] if f else 0.0) + float(d))
+        (int(a), int(b)): [float(x) for x in f_mat[p, :n_layers[p]]]
+        for p, (a, b) in enumerate(pairs)}
 
     layers: List[Dict[int, List[Tuple[int, float]]]] = [
         {v: [] for v in range(n_nodes)} for _ in range(k_max + 1)]

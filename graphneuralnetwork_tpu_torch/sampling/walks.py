@@ -1,17 +1,16 @@
-"""CSR construction and random walks on the host (numpy).
+"""CSR construction and random walks on the host.
 
-Port of ``csr_from_edges``, the numpy path of ``uniform_walks``,
-``weighted_walks``, ``Node2VecWalker``, ``metapath_walks`` and BiNE's
-``bine_walks`` from
-``graphneuralnetwork_tpu/sampling/walks.py``: every walker advances in
-lock-step with vectorised draws, so a [n_walks, length] walk matrix takes
-O(length) numpy steps. The same inputs and ``rng`` give JAX's walks draw
-for draw. The JAX package prefers its C++ engine
-(``sampling/native.py``), whose draws come from another generator; the
-port has no native engine yet, so its walks are those of the JAX function
-with ``use_native=False``, draw for draw from the same ``rng``, except
-that a walker at a node without neighbours at the end of the CSR does not
-read ``indices`` past its end (where JAX's numpy path raises).
+Port of ``csr_from_edges``, ``uniform_walks``, ``weighted_walks``,
+``Node2VecWalker``, ``metapath_walks`` and BiNE's ``bine_walks`` from the
+JAX package's ``sampling/walks.py``. ``uniform_walks`` draws from the C++
+engine (``sampling/native.py``) by default, as JAX's does: one seed drawn
+from ``rng`` and the engine's own generator, so the same ``rng`` gives the
+walks of JAX's engine. With ``use_native=False``, and in every other
+walker, each walker advances in lock-step with vectorised numpy draws, so
+a [n_walks, length] walk matrix takes O(length) numpy steps and the same
+inputs and ``rng`` give JAX's numpy walks draw for draw, except that a
+walker at a node without neighbours at the end of the CSR does not read
+``indices`` past its end (where JAX's numpy path raises).
 
 CSR convention: ``(indptr, indices)`` with the neighbours of node v at
 ``indices[indptr[v]:indptr[v+1]]``.
@@ -23,6 +22,7 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
+from . import native
 from .alias import ConcatAliasTables
 from .neighbor import _take
 
@@ -42,9 +42,14 @@ def csr_from_edges(senders, receivers, n_nodes: int,
 
 
 def uniform_walks(indptr, indices, starts, length: int,
-                  rng: np.random.Generator) -> np.ndarray:
+                  rng: np.random.Generator,
+                  use_native: bool = True) -> np.ndarray:
     """[n_starts, length] int32 uniform walks; a walker at a node without
-    neighbours stays there."""
+    neighbours stays there. ``use_native`` draws on the C++ engine."""
+    if use_native:
+        return native.uniform_walks_native(
+            indptr, indices, np.asarray(starts, np.int64), length,
+            int(rng.integers(0, 2**62)))
     starts = np.asarray(starts, np.int64)
     n = len(starts)
     walks = np.empty((n, length), np.int32)

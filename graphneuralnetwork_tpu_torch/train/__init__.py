@@ -9,7 +9,11 @@ from .loop import (  # noqa: F401
     make_eval_fn,
     train_step,
 )
-from .metrics import accuracy, masked_softmax_cross_entropy  # noqa: F401
+from .metrics import (  # noqa: F401
+    Accumulator,
+    accuracy,
+    masked_softmax_cross_entropy,
+)
 from .scan_loop import fit_node_classifier_scan, run_epochs  # noqa: F401
 from .schedule import (  # noqa: F401
     OptimizerSpec,

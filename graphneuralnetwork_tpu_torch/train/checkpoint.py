@@ -8,6 +8,7 @@ onto ``torch.save``: one file, written atomically, loaded with
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import torch
 
@@ -51,3 +52,12 @@ def restore_checkpoint(ckpt_dir: str,
         state.scheduler.load_state_dict(payload["scheduler"])
     return state, int(payload["step"])
 
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    """The step of the checkpoint in ``ckpt_dir``; ``None`` when there is
+    none."""
+    p = _path(ckpt_dir)
+    if not os.path.exists(p):
+        return None
+    return int(torch.load(p, map_location="cpu", weights_only=True)["step"])

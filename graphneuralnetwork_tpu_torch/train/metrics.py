@@ -1,10 +1,10 @@
-"""Classification metrics (port of the node-classification, binary-logit,
-skip-gram and precision/recall parts of
-``graphneuralnetwork_tpu/train/metrics.py``). The accuracies, the
-softmax loss, the masked sigmoid loss and the precision/recall/F-beta
-triple return float32 scalars on the logits' device, so a training loop
-can keep them there; ``sigmoid_binary_cross_entropy`` is elementwise, as
-optax's is."""
+"""Classification metrics (port of the JAX package's
+``train/metrics.py``). The accuracies, the softmax loss, the masked
+sigmoid loss and the precision/recall/F-beta triple return float32
+scalars on the logits' device, so a training loop can keep them there;
+``sigmoid_binary_cross_entropy`` (also ``optax_sigmoid_bce``) is
+elementwise, as optax's is; ``Accumulator`` keeps running sums on the
+host."""
 
 from __future__ import annotations
 
@@ -46,6 +46,10 @@ def sigmoid_binary_cross_entropy(logits, labels):
     labels = labels.to(logits.dtype)
     return (-labels * F.logsigmoid(logits)
             - (1.0 - labels) * F.logsigmoid(-logits))
+
+
+#: JAX's name for the same elementwise loss.
+optax_sigmoid_bce = sigmoid_binary_cross_entropy
 
 
 def masked_sigmoid_bce(logits, labels, mask=None):
@@ -91,3 +95,19 @@ def precision_recall_fbeta(logits, labels, num_classes: int, mask=None,
     if average == "macro":
         prec, rec, f = prec.mean(), rec.mean(), f.mean()
     return prec, rec, f
+
+
+class Accumulator:
+    """Running sums of ``n`` logged quantities (host-side)."""
+
+    def __init__(self, n: int):
+        self.data = [0.0] * n
+
+    def add(self, *args):
+        self.data = [a + float(b) for a, b in zip(self.data, args)]
+
+    def reset(self):
+        self.data = [0.0] * len(self.data)
+
+    def __getitem__(self, idx):
+        return self.data[idx]

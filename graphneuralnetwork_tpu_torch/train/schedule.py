@@ -58,6 +58,12 @@ def warmup_poly_table(total_steps: int, warmup_steps: int = 0,
                         device=device)
 
 
+def constant_schedule(base_lr: float):
+    """The learning rate at every step: ``base_lr`` (``optax``'s
+    ``constant_schedule``)."""
+    return lambda step: base_lr
+
+
 class WarmupPolyTable:
     """The warmup-poly schedule as a step count and a table on the device,
     the capturable counterpart of ``LambdaLR(warmup_poly_factor)``:

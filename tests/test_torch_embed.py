@@ -7,8 +7,9 @@ through ``params.from_flax``) and the same inputs: within ``SCALE_TOL``
 of each output's largest entry (float32 sums in other orders). The host
 loops start from JAX's initial parameters (the port's ``_init_params``
 replaced) and draw their walks, corpus and batches from the same numpy
-seed (JAX's walkers on their numpy paths: ``use_native=False`` for
-DeepWalk's uniform walks, as the port has no C++ engine); their loss
+seed, on both packages' numpy paths (``use_native=False`` for DeepWalk's
+uniform walks, Struc2Vec's distances in numpy) and, at the defaults, on
+their C++ engines; their loss
 histories must agree within ``LOSS_TOL`` and their final tables within
 ``TABLE_TOL`` over 2 epochs (Adam steps on gradients that differ by
 float32 rounding). The device loop (``CapturedEpochs``) runs on the CPU
@@ -195,13 +196,7 @@ def _check(thist, jhist, tab, jab):
     np.testing.assert_allclose(tab, jab, **TABLE_TOL)
 
 
-@pytest.mark.parametrize("model", ["deepwalk", "node2vec", "struc2vec"])
-def test_walk_embedders_host_loop_follow_jax(model, jax_init, monkeypatch):
-    monkeypatch.setattr(j_emb, "uniform_walks", functools.partial(
-        j_emb.uniform_walks, use_native=False))
-    from graphneuralnetwork_tpu.sampling import native as j_native
-    monkeypatch.setattr(j_native, "struc2vec_distances_native",
-                        lambda *a, **k: None)
+def _walk_embedder_follows_jax(model, jax_init):
     kw = dict(num_walks=5, walk_length=6, embed_dim=D, batch_size=32,
               epochs=2, seed=0, window=3, subsample_t=None)
     ctx_len = 2 * 3 + 5 * 2 * 3
@@ -212,6 +207,27 @@ def test_walk_embedders_host_loop_follow_jax(model, jax_init, monkeypatch):
     temb, thist = getattr(t_emb, f"run_{model}")(
         td, t_emb.WalkEmbedConfig(**kw), device="cpu")
     _check(thist, jhist, temb, np.asarray(jemb))
+
+
+@pytest.mark.parametrize("model", ["deepwalk", "node2vec", "struc2vec"])
+def test_walk_embedders_host_loop_follow_jax(model, jax_init, monkeypatch):
+    from graphneuralnetwork_tpu.sampling import native as j_native
+    from graphneuralnetwork_tpu_torch.sampling import struc2vec as t_s2v
+    for mod in (j_emb, t_emb):
+        monkeypatch.setattr(mod, "uniform_walks", functools.partial(
+            mod.uniform_walks, use_native=False))
+    monkeypatch.setattr(j_native, "struc2vec_distances_native",
+                        lambda *a, **k: None)
+    monkeypatch.setattr(t_s2v.native, "struc2vec_distances_native",
+                        t_s2v._numpy_distances)
+    _walk_embedder_follows_jax(model, jax_init)
+
+
+@pytest.mark.parametrize("model", ["deepwalk", "struc2vec"])
+def test_walk_embedders_on_the_engines_follow_jax(model, jax_init):
+    """At the defaults DeepWalk's walks and Struc2Vec's distances come from
+    each package's C++ engine: the same corpus, the same losses."""
+    _walk_embedder_follows_jax(model, jax_init)
 
 
 def test_line_host_loop_follows_jax(jax_init):

@@ -6,8 +6,8 @@ must print JAX's keys (``model``, ``final_loss``, ``initial_loss``,
 ``embed_shape``) with a loss that decreases; LINE and SDNE (no walks)
 follow JAX's ``cli.main`` from JAX's initial parameters within
 ``LOSS_TOL``. ``read_edgelist`` reads files the tests write, equal to
-JAX's reader on its Python path and on its C++ engine's. What the port does
-not run (the JData pipeline, ``--set`` keys outside a model's config) is
+JAX's reader on both packages' Python paths and on their C++ engines'.
+What the port does not run (``--set`` keys outside a model's config) is
 refused with a message.
 """
 
@@ -28,6 +28,7 @@ from graphneuralnetwork_tpu.sampling import native as j_native  # noqa: E402
 from graphneuralnetwork_tpu_torch import cli as tcli  # noqa: E402
 from graphneuralnetwork_tpu_torch.data import edgelist as t_edgelist  # noqa: E402
 from graphneuralnetwork_tpu_torch.params import from_flax  # noqa: E402
+from graphneuralnetwork_tpu_torch.sampling import native as t_native  # noqa: E402
 from graphneuralnetwork_tpu_torch.train import embed_loop as t_loop  # noqa: E402
 
 #: the CLI's mean epoch losses against JAX's, from the same parameters
@@ -99,7 +100,7 @@ def test_cli_line_and_sdne_follow_jax(model, capsys, monkeypatch):
 @pytest.mark.parametrize("argv,message", [
     (["--model", "gatne", "--set", "no_such_key=1"], "not a key"),
     (["--model", "bine", "--set", "no_such_key=1"], "not a key"),
-    (["--model", "metapath2vec", "--dataset", "some_dir"], "JData"),
+    (["--model", "metapath2vec", "--set", "no_such_key=1"], "not a key"),
     (["--model", "struc2vec", "--set", "device_walks=true"],
      "not a key"),
     (["--model", "line", "--set", "num_walks=2"], "not a key"),
@@ -149,15 +150,16 @@ def _same(got, want):
 @pytest.mark.parametrize("engine", [False, True])
 def test_read_edgelist_equals_jax(tmp_path, monkeypatch, kind, directed,
                                   engine):
-    """Against JAX's Python reader and, where its C++ engine parses the
-    file (numeric files), against the engine's path too."""
+    """Both packages' Python readers and, where the C++ engines parse the
+    file (numeric files), both engines' paths."""
     weighted = kind != "numeric"
     lines = (STRING_LINES if kind == "strings"
              else _numeric_lines(weighted=weighted))
     path = _write(tmp_path / "g.edgelist", lines)
     if not engine:
-        monkeypatch.setattr(j_native, "parse_edgelist_native",
-                            lambda *a, **k: None)
+        for native in (j_native, t_native):
+            monkeypatch.setattr(native, "parse_edgelist_native",
+                                lambda *a, **k: None)
     got = t_edgelist.read_edgelist(path, weighted=weighted,
                                    directed=directed)
     want = j_edgelist.read_edgelist(path, weighted=weighted,

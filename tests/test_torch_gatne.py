@@ -121,8 +121,9 @@ def test_train_gatne_follows_jax(case, monkeypatch):
     state = from_flax(jax.tree.map(np.asarray, init))
     monkeypatch.setattr(t_gatne, "_init_params",
                         lambda p, seed: p.load_state_dict(state))
-    monkeypatch.setattr(j_gatne, "uniform_walks", functools.partial(
-        j_gatne.uniform_walks, use_native=False))
+    for mod in (j_gatne, t_gatne):
+        monkeypatch.setattr(mod, "uniform_walks", functools.partial(
+            mod.uniform_walks, use_native=False))
     with monkeypatch.context() as m:
         if device_loop:
             m.setattr(j_gatne.jax, "default_backend", lambda: "gpu")
@@ -152,8 +153,9 @@ def test_cli_gatne_follows_jax(loss, capsys, monkeypatch):
     state = from_flax(jax.tree.map(np.asarray, init))
     monkeypatch.setattr(t_gatne, "_init_params",
                         lambda p, seed: p.load_state_dict(state))
-    monkeypatch.setattr(j_gatne, "uniform_walks", functools.partial(
-        j_gatne.uniform_walks, use_native=False))
+    for mod in (j_gatne, t_gatne):
+        monkeypatch.setattr(mod, "uniform_walks", functools.partial(
+            mod.uniform_walks, use_native=False))
     jcli.main(argv)
     want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     got = tcli.main(argv + ["--device", "cpu"])

@@ -63,3 +63,42 @@ def test_importing_the_port_loads_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert len(modules) >= 20
+
+
+def _code_strings(path: Path):
+    """The string constants of ``path`` that are not docstrings (docstrings
+    name the JAX files a module ports; code strings are what it uses)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    getattr(first, "value", None), ast.Constant):
+                docs.add(id(first.value))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            yield node.value
+
+
+def test_the_port_uses_no_file_of_the_jax_package():
+    """No code of the port names a path under ``graphneuralnetwork_tpu/``:
+    no string of its Python code, no ``#include`` of its C++ and CUDA
+    sources; and no file of the port or of the scripts names the JAX
+    engine's directory or library, so the port's engine builds from,
+    loads and writes only its own files."""
+    jax_pkg = "graphneuralnetwork_tpu/"
+    native = [p for ext in ("*.cpp", "*.cu", "*.cuh")
+              for p in PKG.rglob(ext)]
+    assert {p.name for p in native} >= {"walker.cpp", "graphbuild.cpp"}
+    bad = [(str(p.relative_to(ROOT)), s) for p in sorted(PKG.rglob("*.py"))
+           for s in _code_strings(p) if jax_pkg in s]
+    bad += [(str(p.relative_to(ROOT)), ln) for p in native
+            for ln in p.read_text().splitlines()
+            if ln.lstrip().startswith("#include") and jax_pkg in ln]
+    bad += [(str(p.relative_to(ROOT)), name) for p in _sources() + native
+            for name in (jax_pkg + "native", "libgnnwalker")
+            if name in p.read_text()]
+    assert not bad, bad

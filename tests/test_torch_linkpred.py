@@ -6,8 +6,9 @@ embeddings (bit for bit: both are the same numpy), the multiplex loaders
 (``synthetic_multiplex``; ``read_multiplex_dir`` on files the test
 writes), ``CachedWeightedSampler`` and ``bine_walks`` draw for draw from
 the same numpy seed, GATNE's neighbour tables, walks, pairs and padded
-pairs (JAX's ``uniform_walks`` on its numpy path, ``use_native=False``:
-the port has no C++ engine), and a walk cache written by the JAX package
+pairs (both packages' ``uniform_walks`` on their numpy paths,
+``use_native=False``, and at the defaults on their C++ engines: 365,992
+pairs), and a walk cache written by the JAX package
 read by the port. ``GATNE``'s forward and gradients from flax's
 parameters (``params.from_flax``) in T and I mode under both aggregators,
 within ``SCALE_TOL`` of each output's largest entry (float32 sums in
@@ -47,9 +48,11 @@ SMALL = dict(num_walks=2, walk_length=5, window=3, neighbor_samples=4)
 
 @pytest.fixture
 def numpy_walks(monkeypatch):
-    """JAX's GATNE walks on the numpy walker, the port's only one."""
-    monkeypatch.setattr(j_gatne, "uniform_walks", functools.partial(
-        j_gatne.uniform_walks, use_native=False))
+    """Both packages' GATNE walks on the numpy walker (their defaults draw
+    on the C++ engines)."""
+    for mod in (j_gatne, t_gatne):
+        monkeypatch.setattr(mod, "uniform_walks", functools.partial(
+            mod.uniform_walks, use_native=False))
 
 
 def _close(got, want, tol=SCALE_TOL):
@@ -187,6 +190,25 @@ def test_pairs_equal(padded, numpy_walks):
         np.testing.assert_array_equal(a, b)
         assert a.dtype == b.dtype
     assert t_rng.random() == j_rng.random()
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_default_pairs_on_the_engines_equal(padded):
+    """``train_gatne``'s draws at the defaults (the neighbour tables, then
+    the pairs from the same rng) on both C++ engines: 365,992 pairs."""
+    data = j_edgelist.synthetic_multiplex(seed=0)
+    fn = "generate_padded_pairs" if padded else "generate_pairs"
+    out = []
+    for mod in (t_gatne, j_gatne):
+        cfg = mod.GATNEConfig()
+        rng = np.random.default_rng(cfg.seed)
+        mod.build_neighbor_tables(data, cfg.neighbor_samples, rng)
+        out.append(getattr(mod, fn)(data, cfg, rng))
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == b.dtype
+    if not padded:
+        assert len(out[0][0]) == 365992
 
 
 def test_walk_cache_written_by_jax_reads_unchanged(tmp_path, numpy_walks):

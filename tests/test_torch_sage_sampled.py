@@ -5,9 +5,9 @@ the CLI's sampled branches) against the JAX package on the CPU.
 The same weights (``params.from_flax``) and the same hop features: logits
 and every parameter gradient within ``F32_TOL`` (float32 sums in other
 orders, ~1e-7 measured). The loops draw their hops from the same numpy
-seed in both packages (JAX's samplers on their numpy path,
-``use_native=False``, as the port has no native engine), start from the
-same parameters (JAX's, handed to the port by replacing its
+seed in both packages, on both packages' numpy samplers
+(``use_native=False``) and, at the defaults, on their C++ engines; they
+start from the same parameters (JAX's, handed to the port by replacing its
 ``_init_params``) and must draw identical hops batch for batch; their
 losses then agree within ``LOSS_TOL`` (AdamW steps on gradients that
 differ by float32 rounding). Each package gets its own data object: JAX's
@@ -45,6 +45,7 @@ from graphneuralnetwork_tpu_torch.nn.sage import (  # noqa: E402
 from graphneuralnetwork_tpu_torch.params import from_flax  # noqa: E402
 from graphneuralnetwork_tpu_torch.sampling import (  # noqa: E402
     csr_from_edges, multihop_sampling)
+from graphneuralnetwork_tpu_torch.sampling import neighbor as t_neighbor  # noqa: E402
 from graphneuralnetwork_tpu_torch.train import metrics as tmetrics  # noqa: E402
 from graphneuralnetwork_tpu_torch.train import sage_loop as t_loop  # noqa: E402
 
@@ -248,13 +249,14 @@ def _recorder(module, store, monkeypatch):
 
 
 @pytest.fixture
-def jax_numpy_samplers(monkeypatch):
-    """JAX's samplers on their numpy path (the port has no native
-    engine)."""
-    monkeypatch.setattr(j_neighbor, "sample_neighbors", functools.partial(
-        j_neighbor.sample_neighbors, use_native=False))
-    monkeypatch.setattr(j_loop, "uniform_walks", functools.partial(
-        j_loop.uniform_walks, use_native=False))
+def numpy_samplers(monkeypatch):
+    """Both packages' samplers on their numpy paths (their defaults draw
+    on the C++ engines)."""
+    for neighbor, loop in ((j_neighbor, j_loop), (t_neighbor, t_loop)):
+        monkeypatch.setattr(neighbor, "sample_neighbors", functools.partial(
+            neighbor.sample_neighbors, use_native=False))
+        monkeypatch.setattr(loop, "uniform_walks", functools.partial(
+            loop.uniform_walks, use_native=False))
 
 
 def _jax_init_params(monkeypatch, dims, cfg, in_features):
@@ -277,10 +279,7 @@ def _cfg(**kw):
     return j_loop.SageConfig(**base), t_loop.SageConfig(**base)
 
 
-@pytest.mark.parametrize("aggregator,optimizer", [("mean", "adamw"),
-                                                   ("max", "sgd")])
-def test_supervised_loop_matches_jax(aggregator, optimizer, monkeypatch,
-                                     jax_numpy_samplers):
+def _supervised_matches_jax(monkeypatch, aggregator, optimizer):
     jcfg, tcfg = _cfg(epochs=2, batch_size=16, aggregator=aggregator,
                       optimizer=optimizer)
     jdata = jpubmed.load_pubmed(n_nodes=480, n_feats=32, seed=1)
@@ -306,9 +305,29 @@ def test_supervised_loop_matches_jax(aggregator, optimizer, monkeypatch,
     assert [h[2] for h in thist] == pytest.approx([h[2] for h in jhist],
                                                   abs=1.01 / 144)
     assert ttest == pytest.approx(jtest, abs=1.01 / 288)
+    return thops
 
 
-def test_unsupervised_loop_matches_jax(monkeypatch, jax_numpy_samplers):
+@pytest.mark.parametrize("aggregator,optimizer", [("mean", "adamw"),
+                                                   ("max", "sgd")])
+def test_supervised_loop_matches_jax(aggregator, optimizer, monkeypatch,
+                                     numpy_samplers):
+    _supervised_matches_jax(monkeypatch, aggregator, optimizer)
+
+
+def test_supervised_loop_on_the_engines_matches_jax(monkeypatch):
+    """At the defaults both loops draw on their C++ engines: the same hops
+    as each other, other hops than the numpy samplers'."""
+    thops = _supervised_matches_jax(monkeypatch, "mean", "adamw")
+    data = tpubmed.load_pubmed(n_nodes=480, n_feats=32, seed=1)
+    indptr, indices, _ = csr_from_edges(data.senders, data.receivers, 480)
+    numpy_hop = t_neighbor.sample_neighbors(
+        thops[0][0], 4, indptr, indices,
+        np.random.default_rng(t_loop.SageConfig().seed), use_native=False)
+    assert not np.array_equal(numpy_hop, thops[0][1])
+
+
+def _unsupervised_matches_jax(monkeypatch):
     jcfg, tcfg = _cfg(epochs=1)
     jdata = jpubmed.load_pubmed(n_nodes=300, n_feats=32, seed=2)
     tdata = tpubmed.load_pubmed(n_nodes=300, n_feats=32, seed=2)
@@ -329,7 +348,16 @@ def test_unsupervised_loop_matches_jax(monkeypatch, jax_numpy_samplers):
                                [h[2] for h in jhist], atol=1e-6)
 
 
-def test_sage_embed_all_matches_jax(jax_numpy_samplers):
+def test_unsupervised_loop_matches_jax(monkeypatch, numpy_samplers):
+    _unsupervised_matches_jax(monkeypatch)
+
+
+def test_unsupervised_loop_on_the_engines_matches_jax(monkeypatch):
+    """The walks and hops of the unsupervised loop on both C++ engines."""
+    _unsupervised_matches_jax(monkeypatch)
+
+
+def test_sage_embed_all_matches_jax(numpy_samplers):
     """The same parameters embed every node (the last batch wrapped) from
     the same hops: JAX's embeddings within ``F32_TOL``."""
     jcfg, tcfg = _cfg(fanouts=(3, 2), hidden=8)

@@ -1,11 +1,13 @@
 """The port's samplers (``graphneuralnetwork_tpu_torch/sampling/``) against
 the JAX package's on the CPU.
 
-The host samplers are numpy in both packages: with the same inputs and a
-``default_rng`` of the same seed they must give the same arrays bit for
-bit and leave the generator in the same state (the next draw is equal).
-The JAX samplers prefer a C++ engine with draws of its own; the port has
-none, so they are compared with JAX's ``use_native=False``. The device
+With the same inputs and a ``default_rng`` of the same seed the host
+samplers must give the same arrays bit for bit and leave the generator in
+the same state (the next draw is equal). Both packages draw from their C++
+engines by default (held against each other in
+``test_torch_native.py``); here each side's numpy path is pinned
+(``use_native=False``, or ``sample_neighbors`` replaced by its numpy form
+where ``multihop_sampling`` calls it). The device
 sampler draws from a ``torch.Generator`` (JAX's threefry keys cannot be
 reproduced), so only its semantics are checked, on a CPU generator: every
 draw a true neighbour, an isolated node repeating itself, the hop shapes,
@@ -69,7 +71,8 @@ def test_sample_neighbors_equals_jax_numpy_path(graph, fanout):
     ja, ta = np.random.default_rng(11), np.random.default_rng(11)
     want = j_neighbor.sample_neighbors(nodes, fanout, indptr, indices, ja,
                                        use_native=False)
-    got = t_neighbor.sample_neighbors(nodes, fanout, indptr, indices, ta)
+    got = t_neighbor.sample_neighbors(nodes, fanout, indptr, indices, ta,
+                                      use_native=False)
     assert got.dtype == want.dtype == np.int32
     np.testing.assert_array_equal(got, want)
     _same_state(ja, ta)
@@ -80,8 +83,9 @@ def test_sample_neighbors_equals_jax_numpy_path(graph, fanout):
 def test_multihop_sampling_equals_jax_numpy_path(graph, monkeypatch):
     s, r, _ = graph
     indptr, indices, _ = t_walks.csr_from_edges(s, r, N)
-    monkeypatch.setattr(j_neighbor, "sample_neighbors", functools.partial(
-        j_neighbor.sample_neighbors, use_native=False))
+    for mod in (j_neighbor, t_neighbor):
+        monkeypatch.setattr(mod, "sample_neighbors", functools.partial(
+            mod.sample_neighbors, use_native=False))
     nodes = np.arange(0, N, 3)
     ja, ta = np.random.default_rng(5), np.random.default_rng(5)
     want = j_neighbor.multihop_sampling(nodes, (3, 2), indptr, indices, ja)
@@ -96,7 +100,8 @@ def test_multihop_sampling_equals_jax_numpy_path(graph, monkeypatch):
 def test_isolated_last_node_repeats_itself():
     """Node 3 has no neighbours and its CSR row starts at the end of
     ``indices``: JAX's numpy path reads past the end there and raises; the
-    port's samplers repeat the node, as for any node without neighbours."""
+    port's numpy samplers repeat the node, as for any node without
+    neighbours, and so do both engines."""
     indptr, indices, _ = t_walks.csr_from_edges([0, 1, 2], [1, 2, 0], 4)
     assert indptr[3] == len(indices)
     nodes = np.array([3, 0, 3])
@@ -104,17 +109,22 @@ def test_isolated_last_node_repeats_itself():
         j_neighbor.sample_neighbors(nodes, 2, indptr, indices,
                                     np.random.default_rng(0),
                                     use_native=False)
-    got = t_neighbor.sample_neighbors(nodes, 2, indptr, indices,
-                                      np.random.default_rng(0))
-    np.testing.assert_array_equal(got, [3, 3, 1, 1, 3, 3])
-    walks = t_walks.uniform_walks(indptr, indices, nodes, 3,
-                                  np.random.default_rng(0))
-    np.testing.assert_array_equal(walks, [[3, 3, 3], [0, 1, 2], [3, 3, 3]])
-    empty = np.zeros(0, np.int32)
-    np.testing.assert_array_equal(
-        t_neighbor.sample_neighbors([0, 1], 2, np.zeros(3, np.int64), empty,
-                                    np.random.default_rng(0)),
-        [0, 0, 1, 1])
+    for use_native in (False, True):
+        got = t_neighbor.sample_neighbors(nodes, 2, indptr, indices,
+                                          np.random.default_rng(0),
+                                          use_native=use_native)
+        np.testing.assert_array_equal(got, [3, 3, 1, 1, 3, 3])
+        walks = t_walks.uniform_walks(indptr, indices, nodes, 3,
+                                      np.random.default_rng(0),
+                                      use_native=use_native)
+        np.testing.assert_array_equal(walks,
+                                      [[3, 3, 3], [0, 1, 2], [3, 3, 3]])
+        empty = np.zeros(0, np.int32)
+        np.testing.assert_array_equal(
+            t_neighbor.sample_neighbors([0, 1], 2, np.zeros(3, np.int64),
+                                        empty, np.random.default_rng(0),
+                                        use_native=use_native),
+            [0, 0, 1, 1])
 
 
 @pytest.mark.parametrize("length", [1, 2, 6])
@@ -125,7 +135,8 @@ def test_uniform_walks_equal_jax_numpy_path(graph, length):
     ja, ta = np.random.default_rng(2), np.random.default_rng(2)
     want = j_walks.uniform_walks(indptr, indices, starts, length, ja,
                                  use_native=False)
-    got = t_walks.uniform_walks(indptr, indices, starts, length, ta)
+    got = t_walks.uniform_walks(indptr, indices, starts, length, ta,
+                                use_native=False)
     assert got.shape == (len(starts), length) and got.dtype == np.int32
     np.testing.assert_array_equal(got, want)
     _same_state(ja, ta)

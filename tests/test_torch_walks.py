@@ -5,9 +5,11 @@ CPU.
 
 The host builders are numpy in both packages: with the same inputs and a
 ``default_rng`` of the same seed they must give the same arrays bit for
-bit and leave the generator in the same state. JAX's Struc2Vec distances
-prefer its C++ engine, which is replaced by its documented "unavailable"
-value (``None``) so that JAX takes its numpy path, as the port does. The
+bit and leave the generator in the same state. Both packages' Struc2Vec
+distances come from their C++ engines (held against each other in
+``test_torch_native.py``); here JAX's engine is replaced by its documented
+"unavailable" value (``None``), so that JAX takes its numpy path, and the
+port's by its numpy distances (``struc2vec._numpy_distances``). The
 device walkers draw from a ``torch.Generator`` (JAX's threefry keys
 cannot be reproduced): their tables must equal JAX's, and their walks are
 checked for their semantics on a CPU generator, including node2vec's
@@ -77,10 +79,13 @@ def smallworld():
 
 @pytest.fixture
 def numpy_engine(monkeypatch):
-    """JAX's C++ engine reported unavailable: its numpy paths."""
+    """JAX's C++ engine reported unavailable, and the port's Struc2Vec
+    distances taken in numpy: both packages' numpy paths."""
     for name in ("struc2vec_distances_native", "uniform_walks_native",
                  "parse_edgelist_native"):
         monkeypatch.setattr(j_native, name, lambda *a, **k: None)
+    monkeypatch.setattr(t_s2v.native, "struc2vec_distances_native",
+                        t_s2v._numpy_distances)
 
 
 @pytest.mark.parametrize("n_nodes,k,seed", [(500, 6, 0), (60, 4, 2),
