@@ -190,6 +190,24 @@ must reach test_acc >= 0.80 with exact launch counts.
                ms per step split into host and device; ``--model basis``
                on the card against the CPU (``BASIS_TOL``; components,
                degrees and diameter equal).
+ 19. parallel — graph and data parallelism on ``torch.distributed``
+               (``parallel/``): (a) ``initialize_distributed`` at world 1
+               on NCCL (a TCP store on a free local port, rank 0); (b) the
+               dry run's phases (``parallel/dryrun.py``: GCN on a tiled
+               halo partition, GAT on it, HAN on halo metapath graphs,
+               device-sampled SAGE, DP skip-gram, DP node2vec walks) at
+               the Cora width, each step's logits, loss and gradients
+               within ``PATH_TOL`` of the single-device model on the same
+               weights, K1 (and K2, K3, K7) launched exactly
+               ``PARALLEL_LAUNCHES`` times a step, each step's ms and the
+               collectives' host ms and NCCL kernels' device ms in one
+               more step (``torch.profiler``), and
+               the halo GCN trained 200 epochs at the CLI's recipe to
+               test_acc >= 0.80; (c) a 4-way tiled halo partition of the
+               same graph: each rank's local step on the card, its halo
+               slab built here from the whole array, the four ranks' rows
+               against the single-device ``spmm``, ``segment_max`` and
+               edge-softmax attention; (d) the process group destroyed.
 Then a ``previous_design`` line (every K1-K10 case beside its previous
 design's time where ``PREVIOUS_DESIGN_MS`` records one, not measured
 here), a ``kernels`` summary line (K1-K10 and the two row-sum kernels,
@@ -3732,6 +3750,166 @@ def previous_design(cases) -> dict:
         "cases": rows}}
 
 
+#: Launches of one step of each dry-run phase at the Cora width on one
+#: rank (a tiled halo partition with every edge interior: its K1 still
+#: walks the empty boundary, which launches). GCN per layer: forward K1
+#: over the interior and the boundary edges and K3 over the tiles, the
+#: backward the same three over the transposes. GAT: forward K2 (the
+#: shift) and K1 twice each (denominator, numerator) over interior and
+#: boundary, K7 over the tiles; backward K1 for the numerator's d h and
+#: for the two score gathers, over interior and boundary. HAN: the GAT
+#: layer's K1 and K2 for each of its two metapath graphs (untiled).
+PARALLEL_LAUNCHES = {"gcn": {"K1": 8, "K3": 4},
+                     "gat": {"K1": 10, "K2": 2, "K7": 1},
+                     "han": {"K1": 20, "K2": 4},
+                     "sage": {}, "skipgram": {}, "walks": {}}
+#: The halo GCN's training run: the CLI's epochs and REPRO criterion.
+PARALLEL_EPOCHS, PARALLEL_ACC = 200, 0.80
+#: Steps each dry-run phase is timed over.
+PARALLEL_TIMED_STEPS = 10
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _collectives(step) -> dict:
+    """One run of ``step`` under ``torch.profiler``: the host ms of the
+    process group's collectives (the ``nccl:*`` events of ProcessGroupNCCL,
+    ``gloo:*`` on the CPU) and their count by name, the device ms of
+    kernels named NCCL and of every kernel."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if DEVICE == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    host_us = nccl_us = kernel_us = 0.0
+    calls = collections.Counter()
+    for e in prof.events():
+        us = e.time_range.elapsed_us()
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if not getattr(e, "is_user_annotation", False):
+                kernel_us += us
+                nccl_us += us if "nccl" in e.name.lower() else 0.0
+        elif e.name.startswith(("nccl:", "gloo:")):
+            host_us += us
+            calls[e.name] += 1
+    return {"collective_host_ms": host_us / 1e3,
+            "collective_calls": dict(calls), "nccl_kernel_ms": nccl_us / 1e3,
+            "kernel_ms": kernel_us / 1e3}
+
+
+def _four_way(setup) -> dict:
+    """Part (c): every rank's local step of a 4-way tiled halo partition
+    of the dry run's graph on the card, each given the halo slab built
+    from the whole array, against the single-device ops."""
+    from graphneuralnetwork_tpu_torch.ops.segment import (
+        edge_softmax, segment_max as plain_segment_max)
+    from graphneuralnetwork_tpu_torch.ops.spmm import spmm, spmm_weighted
+    from graphneuralnetwork_tpu_torch.parallel import Mesh
+    from graphneuralnetwork_tpu_torch.parallel.halo import (
+        halo_slab, partition_graph_halo, segment_max_local, spmm_halo_local)
+    from graphneuralnetwork_tpu_torch.parallel.halo_attention import (
+        attend_local)
+
+    n, layout = setup.n, Mesh.layout(4)
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(n, 128, generator=gen).to(DEVICE)
+    heads, feat = 8, 8
+    h = torch.randn(n, heads, feat, generator=gen).to(DEVICE)
+    fs, fd = (torch.randn(n, heads, generator=gen).to(DEVICE)
+              for _ in range(2))
+    res = {}
+    for name, weight in (("weighted", setup.weight), ("unit", None)):
+        hg = partition_graph_halo(setup.s, setup.r, n, weight, mesh=layout,
+                                  tiled_interior=True, min_edges_per_tile=8)
+        nps, pad = hg.nodes_per_shard, hg.n_node_pad - n
+        xp = torch.cat([x, x.new_zeros(pad, x.shape[1])])
+        shards = [hg.shard(k, DEVICE) for k in range(4)]
+        rows = [slice(k * nps, (k + 1) * nps) for k in range(4)]
+        graph = build_graph(setup.s, setup.r, n, weight, device=DEVICE)
+        if weight is not None:
+            got = torch.cat([spmm_halo_local(sh, xp[rw], halo_slab(xp, hg, k))
+                             for k, (sh, rw) in enumerate(zip(shards, rows))])
+            res["spmm"] = _rel_err(got[:n], spmm(graph, x))
+            res["tiles"] = list(hg.n_tiles)
+            res["boundary_edges"] = list(hg.bnd_edges)
+            continue
+        got = torch.cat([segment_max_local(sh, xp[rw], halo_slab(xp, hg, k))
+                         for k, (sh, rw) in enumerate(zip(shards, rows))])
+        res["segment_max"] = _rel_err(got[:n], plain_segment_max(
+            x[graph.senders.long()], graph.receivers.long(), n,
+            mask=graph.edge_mask))
+        hp = torch.cat([h, h.new_zeros(pad, heads, feat)])
+        fsp, fdp = (torch.cat([f, f.new_zeros(pad, heads)]) for f in (fs, fd))
+        payload = torch.cat([hp.reshape(-1, heads * feat), fsp], dim=1)
+        got = torch.cat([attend_local(sh, hp[rw], fsp[rw], fdp[rw],
+                                      halo_slab(payload, hg, k))
+                         for k, (sh, rw) in enumerate(zip(shards, rows))])
+        sc = torch.nn.functional.leaky_relu(
+            fs[graph.senders.long()] + fd[graph.receivers.long()], 0.2)
+        want = spmm_weighted(graph, edge_softmax(graph, sc), h)
+        res["attend"] = _rel_err(got[:n], want.reshape(n, -1))
+    bad = {k: v for k, v in res.items()
+           if isinstance(v, float) and not v <= PATH_TOL}
+    if bad:
+        raise AssertionError(f"parallel: 4-way local steps against the "
+                             f"single-device ops: {bad}")
+    return res
+
+
+def phase_parallel() -> dict:
+    """Phase ``parallel`` (module docstring): returns the launches of one
+    step of each dry-run phase, summed."""
+    import torch.distributed as dist
+
+    from graphneuralnetwork_tpu_torch.parallel import (initialize_distributed,
+                                                       make_mesh)
+    from graphneuralnetwork_tpu_torch.parallel.dryrun import (
+        SEED, Setup, dryrun_multichip)
+
+    t0 = time.perf_counter()
+    initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0, device=DEVICE)
+    try:
+        mesh = make_mesh(device=DEVICE)
+        if mesh.group is None or dist.get_backend() != (
+                "nccl" if DEVICE == "cuda" else "gloo"):
+            raise AssertionError("parallel: no NCCL process group")
+        reports = dryrun_multichip(
+            mesh, width="cora", timed_steps=PARALLEL_TIMED_STEPS,
+            train_epochs=PARALLEL_EPOCHS)
+        launches = {k: 0 for k in COUNTERS}
+        for name, rep in reports.items():
+            want = PARALLEL_LAUNCHES[name]
+            if rep["launches"] != want:
+                raise AssertionError(f"parallel {name}: launched "
+                                     f"{rep['launches']} a step, expected "
+                                     f"{want}")
+            for k, v in rep["launches"].items():
+                launches[k] += v
+            rep.update(_collectives(rep.pop("step")))
+            rep["collective_share_of_step"] = (
+                rep["collective_host_ms"] / rep["step_ms"]
+                if rep["step_ms"] else None)
+            emit({"phase": "parallel", "part": name,
+                  **{k: v for k, v in rep.items() if k != "phase"}})
+        acc = reports["gcn"]["test_acc"]
+        if not acc >= PARALLEL_ACC:
+            raise AssertionError(f"parallel: the halo GCN's test_acc {acc} "
+                                 f"after {PARALLEL_EPOCHS} epochs (REPRO "
+                                 f"criterion {PARALLEL_ACC})")
+        four = _four_way(Setup(mesh, "cora", SEED))
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "parallel", "part": "four_way", "tolerance": PATH_TOL,
+          **four, "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -3823,6 +4001,7 @@ def main() -> None:
     phase_sage_sampled()
     phase_embed()
     phase_linkpred()
+    runs.append(phase_parallel())
     emit(previous_design(cases))
     launches = {k: sum(run[k] for run in runs) for k in COUNTERS}
     line = summary(cases, launches, floor_ms)

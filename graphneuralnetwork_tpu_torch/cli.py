@@ -192,6 +192,12 @@ def main(argv=None) -> dict:
         ap.error(f"--layout {args.layout} is not supported for --model "
                  f"{name} (supported models: {', '.join(allowed)}; use "
                  "--layout auto or coo)")
+    # a process group where torchrun or a coordinator started one (a no-op
+    # in a single process); console logs come from the primary process
+    # only, which alone writes checkpoints (train/checkpoint.py)
+    from .parallel.multihost import initialize_distributed, is_primary
+    initialize_distributed(device=args.device)
+    args.quiet = args.quiet or not is_primary()
     if branch in ("graphsage", "graphsage_unsup"):
         return _sampled_sage(name, args)
     if name in ("han", "han_batch"):

@@ -17,7 +17,13 @@ on-device representation is the same padded, receiver-sorted COO edge list:
     (K1) split over a CTA;
   * ``transpose`` (built at first use and kept): the real edges in sender
     order with the sender offsets, over which K1 sums the backward of a
-    gather by sender (``ops/aggregate.py``).
+    gather by sender (``ops/aggregate.py``);
+  * ``n_senders`` (default ``n_nodes``): the rows of the table that the
+    senders index. A partitioned graph's shard has more: the sharded
+    partition's senders are global ids into the all-gathered rows, a halo
+    shard's boundary senders index the received halo slab
+    (``parallel/``). The transpose and the gathers' backward are that many
+    rows long.
 
 Padding edges self-loop on node ``n_nodes-1`` with weight 0. They lie in
 no row's ``row_ptr`` span: every aggregation gives them zero values, so
@@ -89,6 +95,12 @@ class Graph:
     n_edges: int
     n_node_pad: int
     max_chunks: int
+    n_senders: Optional[int] = None
+
+    @property
+    def sender_rows(self) -> int:
+        """Rows of the sender table: ``n_senders``, else ``n_nodes``."""
+        return self.n_nodes if self.n_senders is None else self.n_senders
 
     @property
     def n_edge_pad(self) -> int:
@@ -126,13 +138,13 @@ class Graph:
 
     @functools.cached_property
     def transpose(self) -> Transpose:
-        """The real edges in sender order (``Transpose``), with the sender
-        rows above ``long_edges`` edges. Built at first use (a sort and a
-        host sync) and kept with the graph."""
+        """The real edges in sender order (``Transpose``, ``sender_rows``
+        rows), with the sender rows above ``long_edges`` edges. Built at
+        first use (a sort and a host sync) and kept with the graph."""
         e = self.n_edges
         send = self.senders[:e].long()
         order = torch.argsort(send, stable=True)
-        counts = torch.bincount(send, minlength=self.n_nodes)
+        counts = torch.bincount(send, minlength=self.sender_rows)
         return Transpose(
             edge_ids=order.int(),
             row_ptr=torch.cat([counts.new_zeros(1), counts.cumsum(0)]).int(),

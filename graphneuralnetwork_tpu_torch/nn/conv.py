@@ -1,8 +1,9 @@
 """Message-passing convolution layers (torch.nn).
 
 Port of ``graphneuralnetwork_tpu/nn/conv.py``: ``GCNConv``, ``GATConv``
-and ``SAGEConv``, each on the COO and the hybrid layout, and
-``DenseGATConv`` over a dense adjacency. Parameter names
+and ``SAGEConv``, each on the COO and the hybrid layout and on a graph
+partitioned over a mesh (``parallel/``: each rank computes its own rows),
+and ``DenseGATConv`` over a dense adjacency. Parameter names
 and shapes follow the flax modules (``linear``, ``bias``,
 ``attn_src``/``attn_dst`` [H, F], SAGE's ``neighbor`` and ``self``); a flax
 Dense kernel [in, out] is the transpose of a ``Linear.weight``
@@ -141,6 +142,20 @@ class GATConv(nn.Module):
                 return out.reshape(n, self.num_heads * self.features)
             return out.mean(dim=1)
 
+        if hasattr(graph, "halo_size"):
+            # a halo partition: this rank's rows, one exchange of
+            # [h ‖ f_src] and a receiver-local softmax; ``generator`` is
+            # this rank's (``parallel.halo_attention.rank_generator``)
+            from ..parallel.halo_attention import gat_halo_attend
+            dropping = self.training and self.attn_dropout > 0.0
+            out = gat_halo_attend(
+                graph, h, f_src, f_dst, negative_slope=self.negative_slope,
+                attn_dropout=self.attn_dropout if dropping else 0.0,
+                generator=generator)
+            if self.concat_heads:
+                return out
+            return out.reshape(n, self.num_heads, self.features).mean(1)
+
         # the two gathers' backward sums each edge's gradient into its
         # sender (over the graph's transpose) and its receiver on K1
         scores = (gather_senders(graph, f_src)
@@ -198,7 +213,11 @@ class SAGEConv(nn.Module):
 
     On a ``HybridGraph`` ``sum`` and ``mean`` ride ``spmm`` (K3 and K1;
     ``mean`` divides by ``spmm(graph, ones)``, at least 1) and ``max``
-    ``hybrid_segment_max`` (K7 and K2). On a ``Graph`` they are the
+    ``hybrid_segment_max`` (K7 and K2). On a partitioned graph ``sum`` and
+    ``mean`` ride the same dispatching ``spmm`` (the edge weights, 1 on
+    the real edges of an unweighted partition, count), ``max``
+    ``segment_max_halo`` on a ``HaloGraph`` (the all-gather partition has
+    none, as in JAX). On a ``Graph`` they are the
     unweighted segment mean and max over the real edges and the weighted
     sum ``spmm`` (K1's gathered form).
     """
@@ -230,7 +249,8 @@ class SAGEConv(nn.Module):
 
     def _aggregate(self, graph: Graph | HybridGraph,
                    x: torch.Tensor) -> torch.Tensor:
-        if hasattr(graph, "bcsr"):
+        if (hasattr(graph, "bcsr") or hasattr(graph, "halo_size")
+                or hasattr(graph, "mesh")):
             if self.aggregator == "sum":
                 return spmm(graph, x)
             if self.aggregator == "mean":
@@ -238,7 +258,14 @@ class SAGEConv(nn.Module):
                                   device=x.device)
                 counts = torch.clamp_min(spmm(graph, ones), 1.0)
                 return spmm(graph, x) / counts
-            return hybrid_segment_max(graph, x)
+            if hasattr(graph, "bcsr"):
+                return hybrid_segment_max(graph, x)
+            if hasattr(graph, "halo_size"):
+                from ..parallel.halo import segment_max_halo
+                return segment_max_halo(graph, x)
+            raise NotImplementedError(
+                f"{self.aggregator!r} aggregator is not supported on this "
+                "partitioned graph type")
         if self.aggregator == "sum":
             return spmm(graph, x)
         msgs = x[graph.senders]

@@ -14,6 +14,12 @@ parameters stay float32, semantic attention runs in float32 whatever the
 dtype, and the logits come back in float32. Dropout (attention weights and
 between layers) is active in ``train()`` mode and draws from the
 ``generator`` passed to ``forward``.
+
+On halo-partitioned metapath graphs (``parallel/halo.py``) each rank
+computes its own rows, and the semantic attention's mean over the nodes is
+global, as GSPMD makes JAX's: each rank masks its padding rows (global
+row ``rank·nps + i`` past ``n_nodes``) and the masked sum and count are
+summed over the ranks before the division.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ from .conv import (DenseGATConv, GATConv, dropout, glorot_uniform_,
 
 class SemanticAttention(nn.Module):
     """beta = softmax over metapaths of mean_n(tanh(proj(z)) · q); out =
-    sum_p beta_p z_p. ``mask`` (bool [N]) leaves rows out of the mean."""
+    sum_p beta_p z_p. ``mask`` (bool [N]) leaves rows out of the mean;
+    with ``mesh`` the mean runs over the rows of every rank."""
 
     def __init__(self, in_features: int, hidden: int = 128):
         super().__init__()
@@ -42,8 +49,8 @@ class SemanticAttention(nn.Module):
         nn.init.zeros_(self.proj.bias)
         glorot_uniform_(self.q, self.q.shape[0], 1, generator)
 
-    def forward(self, z: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                mesh=None) -> torch.Tensor:
         # z: [P, N, F]; float32 whatever the compute dtype (P x N x hidden
         # is small and the softmax is precision-sensitive)
         z = z.float()
@@ -52,8 +59,12 @@ class SemanticAttention(nn.Module):
             mean = scores.mean(dim=1)
         else:
             m = mask.float()[None, :, None]
-            mean = (scores * m).sum(dim=1) / torch.clamp_min(m.sum(dim=1),
-                                                             1.0)
+            total, count = (scores * m).sum(dim=1), m.sum(dim=1)
+            if mesh is not None:
+                from ..parallel.collectives import all_reduce_sum
+                total = all_reduce_sum(total, mesh)
+                count = all_reduce_sum(count, mesh)
+            mean = total / torch.clamp_min(count, 1.0)
         beta = torch.softmax(mean, dim=0)                      # [P, 1]
         return (beta[:, None, :] * z).sum(dim=0)               # [N, F]
 
@@ -88,6 +99,10 @@ class HANLayer(nn.Module):
         z = torch.stack([
             F.elu(getattr(self, f"gat_mp{p}")(g, x, generator))
             for p, g in enumerate(graphs)])                    # [P, N, H*F]
+        g0 = graphs[0]
+        if hasattr(g0, "halo_size"):
+            # this rank's rows of the padded node set
+            return self.semantic(z, g0.local.row_mask, g0.mesh)
         return self.semantic(z)
 
 

@@ -94,7 +94,8 @@ def sum_gathered(x: torch.Tensor, senders: torch.Tensor,
 
 class _GatherSum(torch.autograd.Function):
     """``out = Σ_e round(w_e · x[senders_e])`` over each receiver's edges
-    (module docstring); ``x`` [N, C], ``w`` float32 [E_pad] or [E_pad, H]."""
+    (module docstring); ``x`` [graph.sender_rows, C], ``w`` float32
+    [E_pad] or [E_pad, H]."""
 
     @staticmethod
     def forward(ctx, x, w, graph, round_weight):
@@ -114,7 +115,7 @@ class _GatherSum(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             t = graph.transpose
-            dx = segment_sum(g, t.senders, t.row_ptr, graph.n_nodes,
+            dx = segment_sum(g, t.senders, t.row_ptr, graph.sender_rows,
                              senders=t.receivers, weight=w,
                              weight_at=t.edge_ids,
                              round_weight=ctx.round_weight,
@@ -123,8 +124,9 @@ class _GatherSum(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             e = graph.n_edges
             heads = 1 if w.ndim == 1 else w.shape[1]
-            dot = (g[graph.receivers[:e]].float().reshape(e, heads, -1)
-                   * x[graph.senders[:e]].float().reshape(e, heads, -1))
+            per = x.shape[1] // heads
+            dot = (g[graph.receivers[:e]].float().reshape(e, heads, per)
+                   * x[graph.senders[:e]].float().reshape(e, heads, per))
             dw = w.new_zeros(w.shape)
             dw[:e] = dot.sum(-1).reshape(dw[:e].shape)
         return dx, dw, None, None

@@ -91,12 +91,13 @@ def gathered_plain(table: torch.Tensor, senders: torch.Tensor,
     if weight is None:
         return rows
     w = weight if weight_at is None else weight[weight_at.long()]
-    w = w.reshape(w.shape[0], -1)
+    w = w[:, None] if w.ndim == 1 else w
     if round_weight:
         w = w.to(table.dtype)
     e, h = w.shape
-    prod = rows.float().reshape(e, h, -1) * w.float()[:, :, None]
-    return prod.to(table.dtype).reshape(e, -1)
+    c = rows.shape[1]
+    prod = rows.float().reshape(e, h, c // h) * w.float()[:, :, None]
+    return prod.to(table.dtype).reshape(e, c)
 
 
 def _pow2_at_least(v: int) -> int:
@@ -249,6 +250,10 @@ def segment_sum(values: torch.Tensor, receivers: torch.Tensor,
                          f"[{n_out + 1}] tensor on {device}")
     if n_edges is None:
         n_edges = values.shape[0] if senders is None else senders.shape[0]
+    if senders is not None and senders.numel() == 0:
+        # no edge to gather (an empty graph's transpose): the kernel reads
+        # no sender, but takes a null pointer for the per-edge form
+        senders = torch.zeros(1, dtype=torch.int32, device=device)
     if senders is not None:
         _int32_on(senders, device, "senders", n_edges)
     elif values.shape[0] < n_edges:

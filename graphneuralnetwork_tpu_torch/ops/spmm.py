@@ -5,7 +5,10 @@
 read inside the kernel, no [E, F] copy), whose backward is K1 again over
 the graph's sender-sorted transpose for d x, and the per-edge dot
 ``g[recv] · x[send]`` for d w. On a ``HybridGraph``, the dense tiles'
-``bcsr_spmm`` (K3) plus the same COO SpMM over the remainder.
+``bcsr_spmm`` (K3) plus the same COO SpMM over the remainder. On a
+partitioned graph (``parallel/``), this rank's rows: ``spmm_halo`` on a
+``HaloGraph`` (the boundary exchange), ``spmm_sharded`` on a
+``ShardedGraph`` (the all-gather).
 """
 
 from __future__ import annotations
@@ -20,6 +23,12 @@ from .bcsr_spmm import bcsr_spmm
 
 def spmm(graph: Graph | HybridGraph, x: torch.Tensor) -> torch.Tensor:
     """out[r] = Σ_e w_e · x[senders_e] for receivers_e == r; [N, F]."""
+    if hasattr(graph, "halo_size"):
+        from ..parallel.halo import spmm_halo
+        return spmm_halo(graph, x)
+    if hasattr(graph, "mesh"):
+        from ..parallel.sharded import spmm_sharded
+        return spmm_sharded(graph, x)
     if hasattr(graph, "bcsr"):
         return bcsr_spmm(graph.bcsr, x, graph.bcsr_t) + spmm(graph.rem, x)
     # each product as x[senders] * w.to(x.dtype): the weight rounded to

@@ -2,7 +2,10 @@
 
 Port of the msgpack backend of ``graphneuralnetwork_tpu/train/checkpoint.py``
 onto ``torch.save``: one file, written atomically, loaded with
-``weights_only=True`` (tensors and plain containers only).
+``weights_only=True`` (tensors and plain containers only). Only the
+primary process writes it (``parallel/multihost.py:is_primary``): every
+rank of a data-parallel run holds the same parameters, and concurrent
+writers would race.
 """
 
 from __future__ import annotations
@@ -22,6 +25,11 @@ def _path(ckpt_dir: str) -> str:
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState, step: int) -> str:
+    from ..parallel.multihost import is_primary
+
+    p = _path(ckpt_dir)
+    if not is_primary():
+        return p
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {
         "step": int(step),
@@ -30,7 +38,6 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, step: int) -> str:
         "scheduler": (None if state.scheduler is None
                       else state.scheduler.state_dict()),
     }
-    p = _path(ckpt_dir)
     tmp = p + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, p)  # atomic — a crash never leaves a torn checkpoint

@@ -22,6 +22,13 @@ trainer for DeepWalk, Node2vec, Struc2Vec and MetaPath2Vec
 JAX's device loop shuffles from threefry keys, the port's from a torch
 generator, so card runs cannot be matched to JAX's draw for draw; the
 CPU's host loop can, from the same parameters and ``rng``.
+
+Data parallelism (JAX's ``shard_batch_arrays``, which GSPMD turns into a
+gradient psum): ``shard_batch_arrays`` gives each rank of a mesh its
+contiguous block of batch rows, and ``make_skipgram_step(..., mesh=mesh)``
+steps on each rank's share of the global loss with the gradients summed
+over the ranks (``parallel/dp.py``), so a step equals the single-device
+step on the whole batch.
 """
 
 from __future__ import annotations
@@ -79,15 +86,50 @@ def _update(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> None:
     optimizer.step()
 
 
-def make_skipgram_step(model, optimizer):
-    """``step(centers, ctx_neg, labels, mask) -> (loss, acc)``: one
-    optimizer step on the masked BCE."""
-    def step(centers, ctx_neg, labels, mask):
-        loss, acc = skipgram_loss(model, centers, ctx_neg, labels, mask)
-        _update(optimizer, loss)
-        return loss.detach(), acc
+def shard_batch_arrays(arrays, mesh) -> tuple:
+    """This rank's contiguous block of rows of each batch array (numpy or
+    tensor, the rows split as evenly as they go, the first ranks taking
+    one more), on the mesh's device; the counterpart of JAX's row-sharded
+    placement over the mesh."""
+    return tuple(torch.tensor_split(torch.as_tensor(a), mesh.size)[mesh.rank]
+                 .contiguous().to(mesh.device) for a in arrays)
 
-    return step
+
+def make_skipgram_step(model, optimizer, mesh=None):
+    """``step(centers, ctx_neg, labels, mask) -> (loss, acc)``: one
+    optimizer step on the masked BCE. With ``mesh`` the arrays are this
+    rank's rows (``shard_batch_arrays``) and the step is data-parallel:
+    each rank's loss is its rows' share of the batch mean (``Σ_local /
+    global rows``), the gradients are summed over the ranks, and the loss
+    and accuracy returned are the whole batch's."""
+    if mesh is None:
+        def step(centers, ctx_neg, labels, mask):
+            loss, acc = skipgram_loss(model, centers, ctx_neg, labels, mask)
+            _update(optimizer, loss)
+            return loss.detach(), acc
+
+        return step
+
+    from ..parallel.collectives import all_reduce_sum
+    from ..parallel.dp import dp_step, global_count
+
+    def dp(centers, ctx_neg, labels, mask):
+        rows = centers.shape[0]
+        share = rows / global_count(rows, mesh)
+        acc = []
+
+        def local_loss():
+            loss, a = skipgram_loss(model, centers, ctx_neg, labels, mask)
+            acc.append(a)
+            return loss * share
+
+        loss = dp_step(model.parameters(), optimizer, local_loss, mesh)
+        # the batch's accuracy: each rank's weighted by its valid entries
+        valid = mask.float().sum()
+        hits = all_reduce_sum(torch.stack([acc[0] * valid, valid]), mesh)
+        return loss, hits[0] / torch.clamp_min(hits[1], 1.0)
+
+    return dp
 
 
 def make_line_step(model, optimizer):

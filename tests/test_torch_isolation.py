@@ -102,3 +102,15 @@ def test_the_port_uses_no_file_of_the_jax_package():
             for name in (jax_pkg + "native", "libgnnwalker")
             if name in p.read_text()]
     assert not bad, bad
+
+
+def test_the_parallel_package_and_its_gloo_worker_stand_alone():
+    """``parallel/`` is among the modules checked above, and the worker
+    that the gloo tests spawn (``tests/torch_world.py``) imports neither
+    JAX nor the JAX package: its ranks run the port alone."""
+    modules = set(_port_modules())
+    assert {f"graphneuralnetwork_tpu_torch.parallel.{m}" for m in (
+        "multihost", "collectives", "sharded", "halo", "halo_attention",
+        "dp", "dryrun")} <= modules
+    worker = ROOT / "tests" / "torch_world.py"
+    assert not [m for m in _imported_roots(worker) if m in FORBIDDEN]
