@@ -190,24 +190,38 @@ must reach test_acc >= 0.80 with exact launch counts.
                ms per step split into host and device; ``--model basis``
                on the card against the CPU (``BASIS_TOL``; components,
                degrees and diameter equal).
- 19. parallel — graph and data parallelism on ``torch.distributed``
-               (``parallel/``): (a) ``initialize_distributed`` at world 1
-               on NCCL (a TCP store on a free local port, rank 0); (b) the
-               dry run's phases (``parallel/dryrun.py``: GCN on a tiled
-               halo partition, GAT on it, HAN on halo metapath graphs,
-               device-sampled SAGE, DP skip-gram, DP node2vec walks) at
-               the Cora width, each step's logits, loss and gradients
-               within ``PATH_TOL`` of the single-device model on the same
-               weights, K1 (and K2, K3, K7) launched exactly
+ 19. parallel — data, graph and tensor parallelism on
+               ``torch.distributed`` (``parallel/``): (a)
+               ``initialize_distributed`` at world 1 on NCCL (a TCP store
+               on a free local port, rank 0); (b) the dry run's ten
+               phases (``parallel/dryrun.py``: GCN on a tiled halo
+               partition, GAT on it, HAN on halo metapath graphs,
+               device-sampled SAGE, DP skip-gram, DP node2vec walks,
+               dp x tp GCN and GAT on the 1 x 1 mesh, the dense GTN on
+               its stack's rows, the wedge-plan GTN on a sharded plan) at
+               the Cora width (GTN: the CLI's 920-node ACM stack, 2
+               channels, hidden 64), each step's logits, loss and
+               gradients within ``PATH_TOL`` of the single-device model on
+               the same weights, K1 (and K2, K3, K7) launched exactly
                ``PARALLEL_LAUNCHES`` times a step, each step's ms and the
                collectives' host ms and NCCL kernels' device ms in one
-               more step (``torch.profiler``), and
-               the halo GCN trained 200 epochs at the CLI's recipe to
-               test_acc >= 0.80; (c) a 4-way tiled halo partition of the
-               same graph: each rank's local step on the card, its halo
-               slab built here from the whole array, the four ranks' rows
-               against the single-device ``spmm``, ``segment_max`` and
-               edge-softmax attention; (d) the process group destroyed.
+               more step (``torch.profiler``), and the halo GCN trained
+               200 epochs at the CLI's recipe to test_acc >= 0.80; (c) a
+               4-way tiled halo partition of the same graph: each rank's
+               local step on the card, its halo slab built here from the
+               whole array, the four ranks' rows against the
+               single-device ``spmm``, ``segment_max`` and edge-softmax
+               attention; (d) a 2 x 2 dp x tp layout of GCN and GAT split
+               by hand (``_tp_by_hand``: K1, K2, K3 and K7 at the sharded
+               widths), the ranks' logits, loss and gradients against the
+               single-device model; (e) run after phase 16 on its plans:
+               the 920- and 4,637-node wedge plans sharded 4 ways, each
+               rank's compose and ``dh`` (K1 over its orders) held against
+               the plain version and timed beside its bound, the ranks'
+               parts against the single-device composition
+               (``phase_gtn_sharded``); (f) ``tools/bench_scaling.py`` at
+               world 1 at its default sizes, edges/s beside the card's
+               name and power limit; (g) the process group destroyed.
 Then a ``previous_design`` line (every K1-K10 case beside its previous
 design's time where ``PREVIOUS_DESIGN_MS`` records one, not measured
 here), a ``kernels`` summary line (K1-K10 and the two row-sum kernels,
@@ -3758,11 +3772,20 @@ def previous_design(cases) -> dict:
 #: shift) and K1 twice each (denominator, numerator) over interior and
 #: boundary, K7 over the tiles; backward K1 for the numerator's d h and
 #: for the two score gathers, over interior and boundary. HAN: the GAT
-#: layer's K1 and K2 for each of its two metapath graphs (untiled).
+#: layer's K1 and K2 for each of its two metapath graphs (untiled). The
+#: tensor-parallel phases on the 1 × 1 mesh: ``tp_gcn`` GCN's; ``tp_gat``
+#: two halo GAT layers (attn1 and attn_out, each the GAT phase's 10 K1, 2
+#: K2 and 1 K7); ``gtn_dense`` none (its products are cuBLAS's, as JAX's
+#: are XLA's); ``gtn_sparse`` the sparse GTN's training step (the
+#: compositions forward and backward, the degree sums and their
+#: read-backs, the final convolution and its d x).
 PARALLEL_LAUNCHES = {"gcn": {"K1": 8, "K3": 4},
                      "gat": {"K1": 10, "K2": 2, "K7": 1},
                      "han": {"K1": 20, "K2": 4},
-                     "sage": {}, "skipgram": {}, "walks": {}}
+                     "sage": {}, "skipgram": {}, "walks": {},
+                     "tp_gcn": {"K1": 8, "K3": 4},
+                     "tp_gat": {"K1": 20, "K2": 4, "K7": 2},
+                     "gtn_dense": {}, "gtn_sparse": {"K1": 10}}
 #: The halo GCN's training run: the CLI's epochs and REPRO criterion.
 PARALLEL_EPOCHS, PARALLEL_ACC = 200, 0.80
 #: Steps each dry-run phase is timed over.
@@ -3862,7 +3885,298 @@ def _four_way(setup) -> dict:
     return res
 
 
-def phase_parallel() -> dict:
+#: The hand-split tensor-parallel layout of part (d): "data" x "model".
+TP_SHAPE = {"data": 2, "model": 2}
+
+
+def _tp_leaves(model, family):
+    """Each (d, m) rank's slices of ``model``'s parameters (``tp.py``'s
+    rules) as leaves of their own, and the specs."""
+    from graphneuralnetwork_tpu_torch.parallel import Mesh
+    from graphneuralnetwork_tpu_torch.parallel.tp import (
+        local_shard, model_param_shardings)
+
+    specs = model_param_shardings(
+        Mesh.layout(tuple(TP_SHAPE.values()), tuple(TP_SHAPE)), model,
+        family)
+    leaves = {(d, m): {k: local_shard(v.detach(), specs[k], TP_SHAPE,
+                                      {"data": d, "model": m})
+                       .clone().requires_grad_(True)
+                       for k, v in model.named_parameters()}
+              for d in range(TP_SHAPE["data"])
+              for m in range(TP_SHAPE["model"])}
+    return specs, leaves
+
+
+def _tp_grads(specs, leaves) -> dict:
+    """The whole gradient of each parameter from the ranks' leaves: the sum
+    over the data ranks (the data all-reduce), the model ranks' slices
+    side by side; a replicated parameter's from the model rank 0 (every
+    model rank computes the same replicated part, once here)."""
+    out = {}
+    d_n, m_n = TP_SHAPE["data"], TP_SHAPE["model"]
+    for k, spec in specs.items():
+        if "model" in spec:
+            out[k] = torch.cat([sum(leaves[(d, m)][k].grad
+                                    for d in range(d_n))
+                                for m in range(m_n)], spec.index("model"))
+        else:
+            out[k] = sum(leaves[(d, 0)][k].grad for d in range(d_n))
+    return out
+
+
+def _tp_gcn_local(leaves, hg, shards, xp, nps):
+    """GCN's dp x tp forward split by hand: each (d, m) rank's conv1 slice
+    (K1 and K3 at hidden/M columns, its halo slab built from the model
+    rank's whole column block), the model psum as a sum of the M partial
+    products, conv2 replicated on the data ranks."""
+    from graphneuralnetwork_tpu_torch.parallel.halo import (halo_slab,
+                                                            spmm_halo_local)
+
+    d_n, m_n = TP_SHAPE["data"], TP_SHAPE["model"]
+    rows = [slice(d * nps, (d + 1) * nps) for d in range(d_n)]
+    sup = {(d, m): xp[rows[d]] @ leaves[(d, m)]["conv1.linear.weight"].T
+           for d in range(d_n) for m in range(m_n)}
+    h = {}
+    for m in range(m_n):
+        full = torch.cat([sup[(d, m)] for d in range(d_n)])
+        for d in range(d_n):
+            h[(d, m)] = torch.relu(
+                spmm_halo_local(shards[d], sup[(d, m)],
+                                halo_slab(full, hg, d))
+                + leaves[(d, m)]["conv1.bias"])
+    z = [sum(h[(d, m)] @ leaves[(d, m)]["conv2.linear.weight"].T
+             for m in range(m_n)) for d in range(d_n)]
+    full = torch.cat(z)
+    return torch.cat([spmm_halo_local(shards[d], z[d], halo_slab(full, hg, d))
+                      + leaves[(d, 0)]["conv2.bias"] for d in range(d_n)])
+
+
+def _tp_attend(shards, hg, h, a_src, a_dst):
+    """The halo attention of every data rank's ``h[d]`` [nps, H, F] with
+    the attention vectors ``a_src[d]``/``a_dst[d]``: [D·nps, H·F]."""
+    from graphneuralnetwork_tpu_torch.parallel.halo import halo_slab
+    from graphneuralnetwork_tpu_torch.parallel.halo_attention import (
+        attend_local)
+
+    d_n = len(h)
+    fs = [torch.einsum("nhf,hf->nh", h[d].float(), a_src[d])
+          for d in range(d_n)]
+    fd = [torch.einsum("nhf,hf->nh", h[d].float(), a_dst[d])
+          for d in range(d_n)]
+    payload = torch.cat([torch.cat([h[d].reshape(h[d].shape[0], -1).float(),
+                                    fs[d]], dim=1) for d in range(d_n)])
+    return [attend_local(shards[d], h[d], fs[d], fd[d],
+                         halo_slab(payload, hg, d)) for d in range(d_n)]
+
+
+def _tp_gat_local(leaves, hg, shards, xp, nps, heads, feat):
+    """GAT's dp x tp forward split by hand: each (d, m) rank's heads of
+    attn1 (K1 and K2 at heads/M), the model psum of attn_out's partial
+    projections, attn_out's attention replicated on the data ranks."""
+    d_n, m_n = TP_SHAPE["data"], TP_SHAPE["model"]
+    hl = heads // m_n
+    e = {}
+    for m in range(m_n):
+        h = [(xp[d * nps:(d + 1) * nps]
+              @ leaves[(d, m)]["attn1.linear.weight"].T).reshape(
+                  nps, hl, feat) for d in range(d_n)]
+        out = _tp_attend(shards, hg, h,
+                         [leaves[(d, m)]["attn1.attn_src"]
+                          for d in range(d_n)],
+                         [leaves[(d, m)]["attn1.attn_dst"]
+                          for d in range(d_n)])
+        for d in range(d_n):
+            e[(d, m)] = torch.nn.functional.elu(out[d])
+    proj = [sum(e[(d, m)] @ leaves[(d, m)]["attn_out.linear.weight"].T
+                for m in range(m_n)) for d in range(d_n)]
+    h2 = [p.reshape(nps, 1, -1) for p in proj]
+    out = _tp_attend(shards, hg, h2,
+                     [leaves[(d, 0)]["attn_out.attn_src"]
+                      for d in range(d_n)],
+                     [leaves[(d, 0)]["attn_out.attn_dst"]
+                      for d in range(d_n)])
+    return torch.cat(out)
+
+
+def _tp_by_hand(setup) -> dict:
+    """Part (d): a 2 x 2 dp x tp layout of GCN (hidden 128) and GAT (8
+    heads x 8) at the Cora width, split by hand in this process: the data
+    axis a 2-way tiled halo partition whose slabs are built from the whole
+    arrays (as ``_four_way``), the model psum a sum of the M partial
+    products; the ranks' logits, loss and gradients (summed over the data
+    ranks, the model ranks' slices side by side) against the single-device
+    model. K1 (and K2, K3, K7) run at the sharded widths: 64 of GCN's 128
+    hidden columns, 4 of GAT's 8 heads."""
+    from graphneuralnetwork_tpu_torch.parallel import Mesh
+    from graphneuralnetwork_tpu_torch.parallel.halo import (
+        partition_graph_halo)
+
+    w, n = setup.w, setup.n
+    gen = torch.Generator().manual_seed(11)
+    x = setup.tensor(setup.feats)
+    y = setup.tensor(setup.labels)
+    idx = setup.tensor(setup.train_idx)
+    res = {}
+    for fam, weight in (("gcn", setup.weight), ("gat", None)):
+        hg = partition_graph_halo(setup.s, setup.r, n, weight,
+                                  mesh=Mesh.layout(TP_SHAPE["data"]),
+                                  tiled_interior=True, min_edges_per_tile=8)
+        shards = [hg.shard(d, DEVICE) for d in range(TP_SHAPE["data"])]
+        nps = hg.nodes_per_shard
+        xp = torch.cat([x, x.new_zeros(hg.n_node_pad - n, x.shape[1])])
+        if fam == "gcn":
+            model = GCN(x.shape[1], hidden=w["gcn_hidden"],
+                        num_classes=setup.n_classes, dropout=0.0)
+        else:
+            model = GAT(x.shape[1], hidden=w["tp_gat_feat"],
+                        num_heads=w["tp_gat_heads"],
+                        num_classes=setup.n_classes, dropout=0.0)
+        model.reset_parameters(gen)
+        model.to(DEVICE)
+        ref_logits = model(build_graph(setup.s, setup.r, n, weight,
+                                       device=DEVICE), x)
+        ref_loss = masked_softmax_cross_entropy(ref_logits[idx], y[idx])
+        ref_loss.backward()
+        specs, leaves = _tp_leaves(model, fam)
+        reset_launches()
+        if fam == "gcn":
+            logits = _tp_gcn_local(leaves, hg, shards, xp, nps)[:n]
+        else:
+            logits = _tp_gat_local(leaves, hg, shards, xp, nps,
+                                   w["tp_gat_heads"], w["tp_gat_feat"])[:n]
+        loss = masked_softmax_cross_entropy(logits[idx], y[idx])
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_launches().items() if v}
+        errs = {"logits": _rel_err(logits.detach(), ref_logits.detach()),
+                "loss": _rel_err(loss.detach(), ref_loss.detach()),
+                **{f"grad {k}": v for k, v in _module_errs(
+                    _tp_grads(specs, leaves),
+                    {k: p.grad for k, p in model.named_parameters()}
+                ).items()}}
+        bad = {k: v for k, v in errs.items() if not v <= PATH_TOL}
+        if bad:
+            raise AssertionError(f"parallel: the hand-split 2x2 {fam} "
+                                 f"against the single-device model: {bad}")
+        res[fam] = {"rel_err": errs, "launches": launches,
+                    "local_width": (w["gcn_hidden"] // TP_SHAPE["model"]
+                                    if fam == "gcn" else
+                                    f"{w['tp_gat_heads'] // TP_SHAPE['model']}"
+                                    f"x{w['tp_gat_feat']}")}
+    return res
+
+
+#: Ranks of part (e)'s sharded wedge plans.
+SHARDED_PLAN_RANKS = 4
+
+
+def phase_gtn_sharded(plan, plan_large) -> dict:
+    """Part (e): the 920- and 4,637-node wedge plans sharded 4 ways by
+    output slot (``parallel/gtn_sparse.py:shard_gtn_plan``). For each
+    composition step, each rank's local compose (K1's gathered form over
+    its ``fwd`` order) and its ``dh`` (K1 over its ``bwd`` order) on the
+    card, each held against its plain version and timed beside its bound,
+    its plain version and its library call (``_k1_gathered_case``); the
+    ranks' rows cut by ``slot_cnt`` and concatenated, and their ``dh``
+    summed, against the single-device composition and its ``dh``
+    (``PATH_TOL``)."""
+    from graphneuralnetwork_tpu_torch.parallel import Mesh
+    from graphneuralnetwork_tpu_torch.parallel.gtn_sparse import (
+        shard_gtn_plan)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    c = GTN_DIMS["channels"]
+    out = {"phase": "parallel", "part": "sharded_plan",
+           "ranks": SHARDED_PLAN_RANKS, "tolerance": PATH_TOL, "plans": []}
+    for label, p in (("gtn", plan), ("gtn3025", plan_large)):
+        sp = shard_gtn_plan(p, Mesh.layout(SHARDED_PLAN_RANKS))
+        orders = [sp.orders(k, DEVICE) for k in range(SHARDED_PLAN_RANKS)]
+        rec = {"plan": label, "nnz": list(p.nnz),
+               "slot_cnt": [list(x) for x in sp.slot_cnt],
+               "wedge_cnt": [list(x) for x in sp.wedge_cnt],
+               "l_pad": list(sp.l_pad), "steps": []}
+        for s in range(len(sp.l_pad)):
+            h = torch.randn(p.nnz[s], c, device=DEVICE, generator=gen)
+            rows_t = p.nnz[s + 1] * p.n_types
+            dq = torch.randn(rows_t, c, device=DEVICE, generator=gen)
+            lp_rows = sp.l_pad[s] * p.n_types
+            q_parts, dh, cases = [], torch.zeros_like(h), []
+            lo = 0
+            for k, (fwd, bwd) in enumerate(orders):
+                cnt = sp.slot_cnt[s][k] * p.n_types
+                q = fwd[s].sum(h, 1 << 30)
+                q_parts.append(q[:cnt])
+                dq_k = torch.zeros(lp_rows, c, device=DEVICE)
+                dq_k[:cnt] = dq[lo:lo + cnt]
+                lo += cnt
+                dh += bwd[s].sum(dq_k, 1 << 30)
+                for form, order, table in (("gather", fwd[s], h),
+                                           ("transpose", bwd[s], dq_k)):
+                    g = order.graph
+                    case = _k1_gathered_case(
+                        f"{label}_compose{s}_rank{k}", form, table,
+                        g.receivers, g.row_ptr, g.n_nodes, g.senders,
+                        g.edge_weight, long_rows=g.long_rows,
+                        long_edges=g.long_edges)
+                    cases.append({key: case[key] for key in (
+                        "graph", "form", "edges_read", "n_out",
+                        "max_abs_err", "kernel_ms", "plain_ms",
+                        "library_ms", "library", "bound_ms", "bound_by")})
+            want_q = p.step_fwd[s].sum(h, 1 << 30)
+            want_dh = p.step_bwd[s].sum(dq, 1 << 30)
+            errs = {"q": _rel_err(torch.cat(q_parts), want_q),
+                    "dh": _rel_err(dh, want_dh)}
+            bad = {k: v for k, v in errs.items() if not v <= PATH_TOL}
+            if bad:
+                raise AssertionError(
+                    f"parallel: the {label} plan's step {s} sharded "
+                    f"{SHARDED_PLAN_RANKS} ways against the single-device "
+                    f"composition: {bad}")
+            rec["steps"].append({"step": s, "rel_err": errs, "k1": cases})
+        out["plans"].append(rec)
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+#: ``tools/bench_scaling.py`` on the card at world 1: its default sizes.
+SCALING_ARGV = ["--devices", "1"]
+
+
+def _scaling(card: str) -> dict:
+    """Part (f): the scaling tool at world 1 (its weak-scaling defaults:
+    16,384 nodes x 262,144 edges x 128 features a device), edges/s of
+    ``spmm_halo`` beside the card's name and power limit; then the device
+    ms of one ``spmm_halo`` of the same inputs (``time_ms``: 10 calls
+    queued behind a sleep kernel, run back to back on the card) beside the
+    tool's wall ms a call."""
+    from graphneuralnetwork_tpu_torch.parallel import make_mesh
+    from graphneuralnetwork_tpu_torch.parallel.halo import (
+        partition_graph_halo, shard_nodes_halo, spmm_halo)
+    from graphneuralnetwork_tpu_torch.tools import bench_scaling
+
+    reset_launches()
+    summary = bench_scaling.main(SCALING_ARGV + ["--device", DEVICE])
+    launches = {k: v for k, v in read_launches().items() if v}
+    if not launches.get("K1"):
+        raise AssertionError("parallel: bench_scaling launched no K1")
+    rec = summary["detail"][0]
+    n, e = 16384, 262144
+    s, r, w, x = bench_scaling._build_inputs(n, e, 128)
+    hg = partition_graph_halo(s, r, n, w, mesh=make_mesh(devices=[0],
+                                                         device=DEVICE))
+    xs = shard_nodes_halo(x, hg)
+    with torch.no_grad():
+        device_ms = time_ms(lambda: spmm_halo(hg, xs), batch=10)
+    return {"card": card, "edges_per_s": rec["edges_per_s"],
+            "ms_per_spmm": rec["seconds"] * 1e3,
+            "device_ms_per_spmm": device_ms,
+            "platform": summary["platform"], "launches": launches}
+
+
+def phase_parallel(card: str) -> dict:
     """Phase ``parallel`` (module docstring): returns the launches of one
     step of each dry-run phase, summed."""
     import torch.distributed as dist
@@ -3902,11 +4216,20 @@ def phase_parallel() -> dict:
             raise AssertionError(f"parallel: the halo GCN's test_acc {acc} "
                                  f"after {PARALLEL_EPOCHS} epochs (REPRO "
                                  f"criterion {PARALLEL_ACC})")
-        four = _four_way(Setup(mesh, "cora", SEED))
+        setup = Setup(mesh, "cora", SEED)
+        four = _four_way(setup)
+        t1 = time.perf_counter()
+        tp = _tp_by_hand(setup)
+        t2 = time.perf_counter()
+        scaling = _scaling(card)
     finally:
         dist.destroy_process_group()
     emit({"phase": "parallel", "part": "four_way", "tolerance": PATH_TOL,
-          **four, "seconds": time.perf_counter() - t0})
+          **four, "seconds": t1 - t0})
+    emit({"phase": "parallel", "part": "tp_by_hand", "shape": TP_SHAPE,
+          "tolerance": PATH_TOL, **tp, "seconds": t2 - t1})
+    emit({"phase": "parallel", "part": "bench_scaling", **scaling,
+          "seconds": time.perf_counter() - t2})
     return launches
 
 
@@ -3995,13 +4318,15 @@ def main() -> None:
                        {"K7": (4, 2), "K2": (4, 2)}))
     runs += phase_han()
     runs += phase_gtn(gtn_small, gtn_large, *gtn_plans)
+    # phase parallel's sharded wedge plans, on the plans built here
+    phase_gtn_sharded(*gtn_plans)
     del gtn_small, gtn_large, gtn_plans
     row_sum, row_sum_launches = phase_row_sum()
     runs.append(row_sum_launches)
     phase_sage_sampled()
     phase_embed()
     phase_linkpred()
-    runs.append(phase_parallel())
+    runs.append(phase_parallel(card))
     emit(previous_design(cases))
     launches = {k: sum(run[k] for run in runs) for k in COUNTERS}
     line = summary(cases, launches, floor_ms)

@@ -334,8 +334,13 @@ class SparseGTN(GTN):
     def _compose(self, plan: GTNPlan, h: torch.Tensor, mix: torch.Tensor,
                  s: int) -> torch.Tensor:
         """``H' = H @ (sum_u mix_u A_u)`` on step ``s``'s patterns; ``h``
-        float32 [nnz_s, C], ``mix`` [C, T]."""
+        float32 [nnz_s, C], ``mix`` [C, T]. A plan sharded over a mesh
+        (``parallel.gtn_sparse.ShardedGTNPlan``) composes over each rank's
+        wedges."""
         limit = max(1, self.wedge_block // self.channels)
+        if hasattr(plan, "sh_h_idx"):
+            from ..parallel.gtn_sparse import compose_sharded
+            return compose_sharded(plan, h, mix, s, limit)
         q = _Compose.apply(h, plan.step_fwd[s], plan.step_bwd[s], limit)
         q = q.view(plan.nnz[s + 1], plan.n_types, self.channels)
         return (q * mix.t()).sum(dim=1)

@@ -1,7 +1,8 @@
-"""Data and graph parallelism on ``torch.distributed``: the port of
-``graphneuralnetwork_tpu/parallel/`` but for its tensor-parallel rules
-(``tp.py``) and its sharded wedge plan (``gtn_sparse.py``), which are still
-to be ported. One process per device; NCCL on CUDA, gloo on the CPU."""
+"""Data, graph and tensor parallelism on ``torch.distributed``: the port of
+``graphneuralnetwork_tpu/parallel/``, with the tensor-parallel rules
+(``tp.py``) and their Megatron-style models (``tp_models.py``) and the
+sharded wedge plan (``gtn_sparse.py``). One process per device; NCCL on
+CUDA, gloo on the CPU."""
 
 from .sharded import (  # noqa: F401
     ShardedGraph,
@@ -26,4 +27,14 @@ from .multihost import (  # noqa: F401
     is_primary,
     make_mesh,
     process_count,
+)
+from .tp import (  # noqa: F401
+    MODEL_RULES,
+    ShardRule,
+    apply_tp,
+    gcn_param_shardings,
+    make_tp_mesh,
+    model_param_shardings,
+    param_shardings,
+    shard_rows,
 )

@@ -8,8 +8,22 @@ implicitly, each differentiable, over ``torch.distributed``.
   * ``all_to_all_rows``: the tiled all-to-all of ``[D·H, F]`` slabs of the
     halo exchange (``jax.lax.all_to_all``); its backward is the same
     exchange of the gradient;
+  * ``all_gather_rows_own``: the same all-gather where every rank goes on
+    to compute the same replicated result (the sharded wedge plan's
+    compositions, ``gtn_sparse.py``): every rank then holds the whole
+    gradient, and the backward keeps the rank's own slice, no sum;
   * ``all_reduce_sum``: a psum whose result every rank consumes; its
-    backward is the psum of the gradient;
+    backward is the psum of the gradient. The data-parallel loss share
+    (``dp.py``) takes it: every rank's share adds to the loss, so each
+    rank's gradient of the sum is the psum of theirs;
+  * ``copy_to`` and ``reduce_from``: Megatron's two region functions for
+    tensor parallelism over the "model" axis (``tp_models.py``).
+    ``copy_to`` marks a tensor that every model rank holds whole entering
+    a column-sharded layer: the identity forward, the psum of the partial
+    gradients backward. ``reduce_from`` ends a row-sharded layer: the psum
+    of the partial products forward, the identity backward (every model
+    rank goes on with the same sum and gets the same gradient). Unlike
+    ``all_reduce_sum`` neither sums twice;
   * ``all_reduce_gradients`` and ``broadcast_parameters``: the psum GSPMD
     inserts for replicated parameters, and identical initial parameters.
 
@@ -84,6 +98,25 @@ def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return _AllGather.apply(x, mesh)
 
 
+class _AllGatherOwn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.rows = mesh, x.shape[0]
+        return _gather(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.mesh.rank * ctx.rows
+        return g[lo:lo + ctx.rows].contiguous(), None
+
+
+def all_gather_rows_own(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``all_gather_rows`` whose result feeds a computation that every rank
+    repeats: the backward takes this rank's slice of its own gradient,
+    which every rank holds whole."""
+    return _AllGatherOwn.apply(x, mesh)
+
+
 def _psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     x = x.clone()
     if mesh.group is not None:
@@ -105,6 +138,41 @@ class _AllReduce(torch.autograd.Function):
 def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The sum of every rank's ``x``, on every rank."""
     return _AllReduce.apply(x, mesh)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.mesh), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _psum(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x``, held whole by every rank of ``mesh`` (the "model" axis),
+    entering a column-sharded layer: the identity; the backward sums the
+    ranks' partial gradients."""
+    return _CopyTo.apply(x, mesh)
+
+
+def reduce_from(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum over the ranks of ``mesh`` (the "model" axis) of a
+    row-sharded layer's partial products, on every rank; the backward is
+    the identity."""
+    return _ReduceFrom.apply(x, mesh)
 
 
 def all_reduce_gradients(params: Iterable[torch.Tensor], mesh: Mesh) -> None:

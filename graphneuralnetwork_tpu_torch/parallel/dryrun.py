@@ -1,8 +1,8 @@
-"""The multi-device dry run: one training step of each data- and
-graph-parallel path, each held against the single-device model.
+"""The multi-device dry run: one training step of each data-, graph- and
+tensor-parallel path, each held against the single-device model.
 
-Port of phases 1, 1b, 3, 5, 6 and 7 of ``dryrun_multichip`` in the JAX
-package's ``__graft_entry__.py``:
+Port of the ten phases of ``dryrun_multichip`` in the JAX package's
+``__graft_entry__.py``:
 
   1. ``gcn``: a GCN step on a tiled halo partition (K1 on every shard's
      interior and boundary edges, K3 on its interior tiles);
@@ -14,20 +14,30 @@ package's ``__graft_entry__.py``:
      drawing its hops from its own generator;
   6. ``skipgram``: data-parallel skip-gram, the batch rows split by rank;
   7. ``walks``: node2vec p/q walks on the device, the start nodes split by
-     rank.
+     rank;
+  2. ``tp_gcn``: a dp × tp GCN step (``tp_models.py``) on a "data" ×
+     "model" mesh, the data axis a tiled halo partition;
+  2b. ``tp_gat``: a dp × tp GAT step, heads split over "model";
+  4. ``gtn_dense``: the dense GTN on its stack's rows split over the
+     ranks (``TPGTN`` on the 1-D mesh);
+  8. ``gtn_sparse``: the wedge-plan GTN on a plan sharded by output slot
+     (``gtn_sparse.py``), every rank computing the replicated loss.
 
-Every step is data-parallel (``dp.py``): each rank's loss is its share of
-the global loss, the gradients are summed over the ranks. Each phase
-compares the step's logits (gathered from every rank), loss and summed
-gradients with the same model on the whole graph on one device, from the
-same weights, and raises past ``TOL`` (relative to the largest entry). The
-``tiny`` width is JAX's dry run (64 nodes a rank, 32 features); ``cora``
-is the CLI's Cora shape (2,708 × 1,433, 7 classes; GCN hidden 128, GAT 8
-heads × 8, HAN at its CLI widths, 4 heads × 8), where ``train_epochs``
-also trains the halo GCN at the CLI's recipe and reports its test
-accuracy. Phases 2, 2b and 4 (tensor parallelism) and 8 (the sharded
-wedge-plan GTN) belong to ``tp.py`` and ``gtn_sparse.py``, which are not
-ported yet; this module does not run them.
+Every step but the last is data-parallel (``dp.py``): each rank's loss is
+its share of the global loss, the gradients are summed over the (data)
+ranks; the sharded GTN's gradients need no sum. Each phase compares the
+step's logits (gathered from every rank), loss and gradients (each rank's
+slices against the same slices of the reference's) with the same model
+on the whole graph on one device, from the same weights, and raises past
+``TOL`` (relative to the largest entry). The tensor-parallel phases run on
+a 2 × 2 mesh in a world of 4 and on ``world × 1`` otherwise. The ``tiny``
+width is JAX's dry run (64 nodes a rank, 32 features; GCN hidden 16, GAT
+2 heads × 4, GTN 2 channels × hidden 8 on random stacks of 0.05 density);
+``cora`` is the CLI's Cora shape (2,708 × 1,433, 7 classes; GCN hidden
+128, GAT 8 heads × 8, HAN at its CLI widths, 4 heads × 8) and the CLI's
+GTN (2 channels, hidden 64) on its 920-node ACM stack, where
+``train_epochs`` also trains the halo GCN at the CLI's recipe and reports
+its test accuracy.
 
     torchrun --standalone --nproc_per_node N \
         -m graphneuralnetwork_tpu_torch.parallel.dryrun
@@ -51,8 +61,11 @@ import torch
 from ..core.graph import (add_self_loops, build_graph, row_normalize_features,
                           sym_normalize_weights, symmetrize)
 from ..data.planetoid import synthetic_citation_graph
-from ..nn import GCN, HAN
+from ..data.acm import load_acm_gtn
+from ..nn import GAT, GCN, HAN
 from ..nn.conv import GATConv
+from ..nn.gtn import GTN
+from ..nn.gtn_sparse import SparseGTN, build_gtn_plan, stacked_adj_to_sparse
 from ..nn.embed import SkipGram
 from ..nn.sage import SampledGraphSAGE
 from ..ops.cuda.counters import read_launches, reset_launches
@@ -67,9 +80,12 @@ from ..train.metrics import masked_softmax_cross_entropy
 from ..train.schedule import make_optimizer
 from .collectives import all_gather_rows, all_reduce_sum, broadcast_parameters
 from .dp import dp_cross_entropy, dp_step, owned_rows
+from .gtn_sparse import shard_gtn_plan
 from .halo import partition_graph_halo, shard_nodes_halo
 from .halo_attention import rank_generator
 from .multihost import Mesh, initialize_distributed, is_primary, make_mesh
+from .tp import local_shard, make_tp_mesh, shard_rows
+from .tp_models import gtn_rows, tensor_parallel
 
 #: The step against the single-device model: logits and loss relative to
 #: their largest entry, each gradient relative to the largest gradient
@@ -84,12 +100,14 @@ WIDTHS = {
                  han_edges_per_node=40 / 64, sage_dims=(8,),
                  sage_fanouts=(3, 3), sage_batch=8, embed_dim=8,
                  embed_batch=16, embed_ctx=4, walk_starts=8, walk_length=6,
-                 min_edges_per_tile=8),
+                 min_edges_per_tile=8, tp_gat_heads=2, tp_gat_feat=4,
+                 gtn_hidden=8, gtn_types=3, gtn_density=0.05),
     "cora": dict(feats=1433, classes=7, gcn_hidden=128, gat_heads=8,
                  gat_feat=8, han_hidden=8, han_heads=4, han_edges_per_node=5,
                  sage_dims=(128,), sage_fanouts=(10, 10), sage_batch=64,
                  embed_dim=128, embed_batch=512, embed_ctx=6,
-                 walk_starts=1024, walk_length=10, min_edges_per_tile=8),
+                 walk_starts=1024, walk_length=10, min_edges_per_tile=8,
+                 tp_gat_heads=8, tp_gat_feat=8, gtn_hidden=64),
 }
 
 
@@ -120,6 +138,37 @@ class Setup:
         self.n, self.feats = n, feats
         self.labels = labels.astype(np.int64)
         self.n_classes = int(labels.max()) + 1
+
+    @property
+    def tp_mesh(self) -> Mesh:
+        """The tensor-parallel phases' "data" × "model" mesh: 2 × 2 in a
+        world of 4, else ``world × 1`` (built once: its groups' creation
+        is collective)."""
+        if "_tp_mesh" not in self.__dict__:
+            d = self.mesh.size
+            shape = (2, 2) if d == 4 else (d, 1)
+            self._tp_mesh = make_tp_mesh(*shape, devices=list(
+                self.mesh.devices.ravel()), device=self.device)
+        return self._tp_mesh
+
+    def gtn_stack(self) -> tuple:
+        """GTN's input (numpy): the stack [T, N, N] with the identity
+        last, the features, each node's label (0 off the targets) and the
+        training rows' node ids. ``tiny``: JAX's dry-run stack on this
+        graph; ``cora``: the CLI's 920-node synthetic ACM."""
+        if "gtn_density" in self.w:
+            rng = np.random.default_rng(self.seed)
+            t, n = self.w["gtn_types"], self.n
+            adj = (rng.random((t - 1, n, n))
+                   < self.w["gtn_density"]).astype(np.float32)
+            adj = np.concatenate([adj, np.eye(n, dtype=np.float32)[None]])
+            return adj, self.feats, self.labels, self.train_idx
+        data = load_acm_gtn(seed=self.seed, device="cpu")
+        tgt = data.target_idx.numpy()
+        labels = np.zeros(data.adj.shape[1], np.int64)
+        labels[tgt] = data.labels.numpy()
+        return (data.adj.numpy(), data.features.numpy(), labels,
+                tgt[data.train_idx.numpy()])
 
     def tensor(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -156,13 +205,20 @@ def _scale_group(name: str) -> str:
 
 
 def _grad_errs(model, ref) -> dict:
-    """Each gradient of ``model`` against ``ref``'s: the largest difference
-    over the largest entry of the reference's scale group."""
+    """Each gradient of ``model`` against ``ref``'s (this rank's slice of
+    it where ``model`` is tensor-parallel: its ``specs``): the largest
+    difference over the largest entry of the reference's scale group."""
     want = _grads(ref)
     scale = {}
     for k, g in want.items():
         grp = _scale_group(k)
         scale[grp] = max(scale.get(grp, 0.0), float(g.abs().max()))
+    specs = getattr(model, "specs", None)
+    if specs is not None:
+        mesh = model.mesh
+        coords = {a: mesh.coord(a) for a in mesh.axis_names}
+        want = {k: local_shard(g, specs[k], mesh.shape, coords)
+                for k, g in want.items()}
     return {f"grad {k}": float((g - want[k]).abs().max())
             / max(scale[_scale_group(k)], 1e-30)
             for k, g in _grads(model).items()}
@@ -220,14 +276,19 @@ def _report(phase: str, setup: Setup, loss, errs: dict, launches: dict,
 
 
 def _ce_step(phase: str, setup: Setup, model, ref, graph, ref_graph, x, y,
-             rows, idx, opt, forward):
+             rows, idx, opt, forward, mesh: Optional[Mesh] = None,
+             ref_inputs=None):
     """The data-parallel cross-entropy step of ``model`` (``forward(model,
-    graph, x)`` gives this rank's logits) against ``ref`` on the whole
-    graph; returns (loss, errors, launches, step)."""
-    mesh = setup.mesh
-    ref_logits = forward(ref, ref_graph, setup.tensor(setup.feats))
+    graph, x)`` gives this rank's logits) over the (data) ``mesh`` (the
+    run's by default) against ``ref`` on the whole graph (``ref_inputs``:
+    its features and labels, the run's by default); returns (loss,
+    errors, launches, step)."""
+    mesh = setup.mesh if mesh is None else mesh
+    feats, labels = ((setup.feats, setup.labels) if ref_inputs is None
+                     else ref_inputs)
+    ref_logits = forward(ref, ref_graph, setup.tensor(feats))
     ref_loss = masked_softmax_cross_entropy(
-        ref_logits[idx], setup.tensor(setup.labels)[idx])
+        ref_logits[idx], setup.tensor(labels)[idx])
     ref_loss.backward()
     held = {}
 
@@ -240,7 +301,7 @@ def _ce_step(phase: str, setup: Setup, model, ref, graph, ref_graph, x, y,
         return float(dp_step(model.parameters(), opt, local_loss, mesh))
 
     loss, launches = _counted(step, setup.device)
-    logits = all_gather_rows(held["logits"], mesh)[:setup.n]
+    logits = all_gather_rows(held["logits"], mesh)[:ref_logits.shape[0]]
     pairs = {"logits": (logits, ref_logits),
              "loss": (torch.tensor(loss), ref_loss.detach().cpu())}
     return loss, _compare(phase, pairs, _grad_errs(model, ref)), launches, \
@@ -492,9 +553,130 @@ def phase_walks(setup: Setup, timed_steps: int = 0) -> dict:
                    shape=list(walks.shape))
 
 
+def _tp_graph_step(phase: str, setup: Setup, family: str, make, weight,
+                   salt: int, timed_steps: int) -> dict:
+    """A dp × tp step of ``make()`` (GCN or GAT, dropout 0) on the
+    tensor-parallel mesh, the data axis a tiled halo partition."""
+    tpm = setup.tp_mesh
+    dm = tpm.axis("data")
+    hg = partition_graph_halo(setup.s, setup.r, setup.n, weight, mesh=dm,
+                              tiled_interior=True,
+                              min_edges_per_tile=setup.w[
+                                  "min_edges_per_tile"])
+    x, y = (shard_nodes_halo(setup.feats, hg),
+            shard_nodes_halo(setup.labels, hg))
+    single = setup.init(make(), salt)
+    ref = copy.deepcopy(single)
+    model = tensor_parallel(single, tpm, family)
+    idx = setup.tensor(setup.train_idx)
+    rows = owned_rows(idx, dm.rank, hg.nodes_per_shard)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2, eps=1e-8)
+    ref_graph = build_graph(setup.s, setup.r, setup.n, weight,
+                            device=setup.device)
+    loss, errs, launches, step = _ce_step(
+        phase, setup, model, ref, hg, ref_graph, x, y, rows, idx, opt,
+        lambda m, g, xx: m(g, xx), mesh=dm)
+    return _report(phase, setup, loss, errs, launches, step, timed_steps,
+                   mesh=list(tpm.devices.shape), tiles=hg.n_tiles)
+
+
+def phase_tp_gcn(setup: Setup, timed_steps: int = 0) -> dict:
+    """Phase 2: dp × tp GCN, conv1 column-sharded and conv2 row-sharded
+    over "model"."""
+    w = setup.w
+    return _tp_graph_step(
+        "tp_gcn", setup, "gcn",
+        lambda: GCN(setup.feats.shape[1], hidden=w["gcn_hidden"],
+                    num_classes=setup.n_classes, dropout=0.0),
+        setup.weight, 7, timed_steps)
+
+
+def phase_tp_gat(setup: Setup, timed_steps: int = 0) -> dict:
+    """Phase 2b: dp × tp GAT, attn1's heads split over "model", attn_out
+    row-sharded; unit weights."""
+    w = setup.w
+    return _tp_graph_step(
+        "tp_gat", setup, "gat",
+        lambda: GAT(setup.feats.shape[1], hidden=w["tp_gat_feat"],
+                    num_heads=w["tp_gat_heads"],
+                    num_classes=setup.n_classes, dropout=0.0),
+        None, 8, timed_steps)
+
+
+def _gtn_model(setup: Setup, adj, x, labels, sparse: bool):
+    kw = dict(in_features=x.shape[1], num_types=adj.shape[0],
+              num_classes=int(labels.max()) + 1, channels=2, num_layers=2,
+              hidden=setup.w["gtn_hidden"])
+    return SparseGTN(**kw) if sparse else GTN(**kw)
+
+
+def phase_gtn_dense(setup: Setup, timed_steps: int = 0) -> dict:
+    """Phase 4: the dense GTN with its stack's rows split over the ranks
+    (each composition against the all-gathered mixture, the projected
+    rows all-gathered once)."""
+    mesh = setup.mesh
+    adj, feats, labels, train = setup.gtn_stack()
+    a, x = gtn_rows(adj, feats, mesh)
+    y = shard_rows(labels, mesh)
+    single = setup.init(_gtn_model(setup, adj, feats, labels, False), 9)
+    ref = copy.deepcopy(single)
+    model = tensor_parallel(single, mesh, "gtn")
+    idx = setup.tensor(train)
+    rows = owned_rows(idx, mesh.rank, a.shape[1])
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2, eps=1e-8)
+    loss, errs, launches, step = _ce_step(
+        "gtn_dense", setup, model, ref, a, setup.tensor(adj), x, y, rows,
+        idx, opt, lambda m, g, xx: m(g, xx), ref_inputs=(feats, labels))
+    return _report("gtn_dense", setup, loss, errs, launches, step,
+                   timed_steps, nodes=int(adj.shape[1]),
+                   rows_per_rank=int(a.shape[1]))
+
+
+def phase_gtn_sparse(setup: Setup, timed_steps: int = 0) -> dict:
+    """Phase 8: the wedge-plan GTN on a plan sharded by output slot over
+    the ranks; every rank computes the whole (replicated) loss, and its
+    gradients are the single-device ones without a sum."""
+    mesh = setup.mesh
+    adj, feats, labels, train = setup.gtn_stack()
+    n = adj.shape[1]
+    plan = build_gtn_plan(stacked_adj_to_sparse(adj), n, num_layers=2,
+                          device=setup.device)
+    splan = shard_gtn_plan(plan, mesh)
+    splan.warm()
+    model = setup.init(_gtn_model(setup, adj, feats, labels, True), 10)
+    ref = copy.deepcopy(model)
+    x, y = setup.tensor(feats), setup.tensor(labels)
+    idx = setup.tensor(train)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2, eps=1e-8)
+    held = {}
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        logits = model(splan, x)
+        held["logits"] = logits.detach()
+        loss = masked_softmax_cross_entropy(logits[idx], y[idx])
+        loss.backward()
+        opt.step()
+        return float(loss.detach())
+
+    ref_logits = ref(plan, x)
+    ref_loss = masked_softmax_cross_entropy(ref_logits[idx], y[idx])
+    ref_loss.backward()
+    loss, launches = _counted(step, setup.device)
+    pairs = {"logits": (held["logits"], ref_logits),
+             "loss": (torch.tensor(loss), ref_loss.detach().cpu())}
+    errs = _compare("gtn_sparse", pairs, _grad_errs(model, ref))
+    return _report("gtn_sparse", setup, loss, errs, launches, step,
+                   timed_steps, nodes=int(n), nnz=list(plan.nnz),
+                   slots=[list(c) for c in splan.slot_cnt],
+                   wedges=[list(c) for c in splan.wedge_cnt])
+
+
 PHASES = {"gcn": phase_gcn, "gat": phase_gat, "han": phase_han,
           "sage": phase_sage, "skipgram": phase_skipgram,
-          "walks": phase_walks}
+          "walks": phase_walks, "tp_gcn": phase_tp_gcn,
+          "tp_gat": phase_tp_gat, "gtn_dense": phase_gtn_dense,
+          "gtn_sparse": phase_gtn_sparse}
 
 
 def dryrun_multichip(mesh: Mesh, *, width: str = "tiny",

@@ -5,6 +5,8 @@ Port of ``graphneuralnetwork_tpu/parallel/multihost.py`` onto
 the CPU. Where JAX's mesh is an array of devices, the port's ``Mesh`` is an
 array of process ranks (``devices``, in the mesh's shape) with the axis
 names, the process group that spans them and the device of this process.
+A mesh of more axes also holds, for each axis, the 1-D mesh along it that
+holds this process (``Mesh.axis``), each with its own process group.
 
 ``initialize_distributed`` is idempotent and, in a single process with no
 coordinator variables, a no-op: then ``make_mesh`` gives the one-process
@@ -117,16 +119,19 @@ class Mesh:
     """Process ranks laid out in ``devices.shape`` under ``axis_names``.
 
     ``group`` is the process group over them (None outside a process
-    group, where the mesh holds this one process), ``device`` this
-    process's device and ``rank`` its position in the flattened mesh
-    (both None for a layout built by ``Mesh.layout``, which partitions
-    graphs on the host for ranks that are not running)."""
+    group, where the mesh holds this one process, and for a one-rank
+    mesh), ``device`` this process's device and ``rank`` its position in
+    the flattened mesh (both None for a layout built by ``Mesh.layout``,
+    which partitions graphs on the host for ranks that are not running).
+    ``axes`` holds, for a mesh of more than one axis, the 1-D mesh along
+    each axis through this process (``axis``)."""
 
     devices: np.ndarray
     axis_names: tuple
     group: Optional[dist.ProcessGroup]
     device: Optional[torch.device]
     rank: Optional[int]
+    axes: dict = dataclasses.field(default_factory=dict)
 
     @property
     def shape(self) -> dict:
@@ -141,12 +146,71 @@ class Mesh:
         """This process runs one of the mesh's ranks."""
         return self.rank is not None
 
+    @property
+    def coords(self) -> tuple:
+        """This process's position along each axis, e.g. ``(d, m)``."""
+        return tuple(int(i) for i in np.unravel_index(self.rank,
+                                                      self.devices.shape))
+
+    def coord(self, name: str) -> int:
+        """This process's position along axis ``name`` (0 along an axis the
+        mesh does not have)."""
+        if name not in self.axis_names:
+            return 0
+        return self.coords[self.axis_names.index(name)]
+
+    def axis(self, name: str) -> "Mesh":
+        """The 1-D mesh along axis ``name`` that holds this process: the
+        mesh itself when it is 1-D along ``name``; a one-rank mesh (its
+        collectives the identity) along an axis the mesh does not have."""
+        if self.axis_names == (name,):
+            return self
+        if name in self.axes:
+            return self.axes[name]
+        if name in self.axis_names:
+            raise ValueError(f"mesh axis {name!r} of a mesh that runs "
+                             "nowhere")
+        return Mesh(np.asarray([self.rank]), (name,), None, self.device,
+                    None if self.rank is None else 0)
+
     @classmethod
-    def layout(cls, n_devices: int, axis: str = "data") -> "Mesh":
-        """A 1-D mesh of ``n_devices`` ranks that runs nowhere: the host
+    def layout(cls, n_devices, axis="data") -> "Mesh":
+        """A mesh of ``n_devices`` ranks (an int, 1-D along ``axis``; or a
+        shape along the axes ``axis``) that runs nowhere: the host
         partitioners build every shard of it, and a caller views each with
         ``shard(rank, device)``."""
-        return cls(np.arange(n_devices), (axis,), None, None, None)
+        if isinstance(n_devices, int):
+            return cls(np.arange(n_devices), (axis,), None, None, None)
+        shape = tuple(int(k) for k in n_devices)
+        return cls(np.arange(int(np.prod(shape))).reshape(shape),
+                   tuple(axis), None, None, None)
+
+
+def _group(ranks: Sequence[int]) -> Optional[dist.ProcessGroup]:
+    """The process group over ``ranks``: the world's where they are every
+    process, None for one rank; else a new group. ``dist.new_group`` is
+    collective: every process must call this for every group, in the same
+    order, member or not."""
+    if len(ranks) == 1:
+        return None
+    if len(ranks) == process_count():
+        return dist.group.WORLD
+    return dist.new_group(sorted(int(r) for r in ranks))
+
+
+def _axis_meshes(arr: np.ndarray, axis_names: tuple, me: int,
+                 device: torch.device) -> dict:
+    """For each axis of the mesh ``arr``, the 1-D mesh along it through
+    process ``me``, creating every line's group on every process."""
+    out = {}
+    for i, name in enumerate(axis_names):
+        lines = np.moveaxis(arr, i, -1).reshape(-1, arr.shape[i])
+        for line in lines:
+            group = _group(line.tolist()) if dist.is_initialized() else None
+            if me in line:
+                out[name] = Mesh(line.copy(), (name,), group, device,
+                                 int(np.flatnonzero(line == me)[0]))
+    return out
 
 
 def make_mesh(axis_names: Sequence[str] = ("data",),
@@ -158,8 +222,11 @@ def make_mesh(axis_names: Sequence[str] = ("data",),
     1-D by default (pure data or edge parallelism). A mesh of more axes
     needs ``shape``; its ranks are laid out host-major, and its trailing
     axis must stay within one host (``local_device_count`` processes), as
-    JAX's keeps to one host's ICI domain. ``device`` defaults to this
-    process's (``_default_device``)."""
+    JAX's keeps to one host's ICI domain; it also builds the 1-D meshes
+    along each axis (``Mesh.axis``), creating every one's group on every
+    process. ``device`` defaults to this process's (``_default_device``).
+    Every process calls this with the same arguments: a group's creation
+    is collective."""
     ranks = sorted(devices if devices is not None
                    else range(process_count()))
     if shape is None:
@@ -193,6 +260,8 @@ def make_mesh(axis_names: Sequence[str] = ("data",),
                          "group (initialize_distributed)")
     rank = (int(np.flatnonzero(arr.ravel() == me)[0])
             if me in ranks else None)
-    return Mesh(arr, tuple(axis_names), group,
-                resolve_device(device) if device is not None
-                else _default_device(), rank)
+    device = (resolve_device(device) if device is not None
+              else _default_device())
+    axes = (_axis_meshes(arr, tuple(axis_names), me, device)
+            if len(shape) > 1 else {})
+    return Mesh(arr, tuple(axis_names), group, device, rank, axes)

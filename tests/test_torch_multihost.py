@@ -125,6 +125,34 @@ def test_make_mesh_2d_host_major(world4):
         assert res["mh"]["mesh_2d_shape"] == {"data": 2, "model": 2}
 
 
+def test_make_mesh_2d_axis_submeshes(world4):
+    """Each rank's 1-D meshes along "data" and "model" of the 2×2 mesh:
+    its coordinates, the lines through it, and a collective over each
+    (every rank created every line's group)."""
+    for rank, res in enumerate(world4):
+        got = res["mh"]
+        d, m = divmod(rank, 2)
+        assert tuple(got["coords"]) == (d, m)
+        assert got["axes"]["data"] == ([m, 2 + m], d, True)
+        assert got["axes"]["model"] == ([2 * d, 2 * d + 1], m, True)
+        assert got["axis_sums"] == {"data": float(m + 2 + m),
+                                    "model": float(4 * d + 1)}
+
+
+def test_one_rank_mesh_axes_are_the_identity():
+    """A 1×1 mesh without a process group (the card's world of 1): its
+    axis meshes hold this process, with no group."""
+    mesh = make_mesh(("data", "model"), shape=(1, 1), device="cpu")
+    assert mesh.coords == (0, 0)
+    for a in ("data", "model"):
+        sub = mesh.axis(a)
+        assert sub.devices.tolist() == [0] and sub.rank == 0
+        assert sub.group is None and sub.axis_names == (a,)
+    flat = make_mesh(device="cpu")
+    assert flat.axis("data") is flat
+    assert flat.axis("model").size == 1 and flat.axis("model").rank == 0
+
+
 def test_checkpoint_written_by_the_primary_only(tmp_path, monkeypatch):
     from graphneuralnetwork_tpu_torch.nn import GCN
     from graphneuralnetwork_tpu_torch.train.checkpoint import save_checkpoint

@@ -9,8 +9,9 @@ sharded Cora graph (loss, gradients and the loss after one Adam step), a
 DP skip-gram step, a GCN step on a tiled halo partition whose training
 rows split unevenly over the ranks, and the port's dry run
 (``parallel/dryrun.py``, which holds every phase against the
-single-device model itself). JAX runs on the first D devices of
-conftest's virtual mesh from the same numpy inputs and flax parameters.
+single-device model itself; also at D = 1 in this process). JAX runs on
+the first D devices of conftest's virtual mesh from the same numpy inputs
+and flax parameters.
 Tolerance ``F32_TOL`` (float32 sums in other orders). Each world is
 spawned once for the module. The cases mirror ``tests/test_parallel.py``'s
 data-parallel and all-gather cases.
@@ -47,7 +48,9 @@ from graphneuralnetwork_tpu_torch.params import from_flax  # noqa: E402
 from graphneuralnetwork_tpu_torch.parallel import (  # noqa: E402
     Mesh, partition_graph)
 from graphneuralnetwork_tpu_torch.parallel.dp import owned_rows  # noqa: E402
-from graphneuralnetwork_tpu_torch.parallel.dryrun import PHASES  # noqa: E402
+from graphneuralnetwork_tpu_torch.parallel import make_mesh  # noqa: E402
+from graphneuralnetwork_tpu_torch.parallel.dryrun import (  # noqa: E402
+    PHASES, dryrun_multichip)
 from graphneuralnetwork_tpu_torch.parallel.sharded import (  # noqa: E402
     nodes_per_shard)
 from graphneuralnetwork_tpu_torch.train.metrics import (  # noqa: E402
@@ -301,12 +304,26 @@ def test_uneven_train_rows_equal_single_device(worlds, d, key):
             np.testing.assert_allclose(got[key], want[key], **F32_TOL)
 
 
-@pytest.mark.parametrize("d", WORLDS)
+@pytest.fixture(scope="module")
+def dryrun_one():
+    """The dry run in this process: a world of 1 without a process group
+    (its collectives the identity)."""
+    reports = dryrun_multichip(make_mesh(device="cpu"))
+    for rep in reports.values():
+        rep.pop("step")
+    return reports
+
+
+@pytest.mark.parametrize("d", (1,) + WORLDS)
 @pytest.mark.parametrize("phase", list(PHASES))
-def test_dryrun_phases(worlds, d, phase):
-    """Each dry-run phase ran on D ranks, matched the single-device step
-    (it raises otherwise) and reports a finite loss."""
-    rep = worlds[d][1][0]["dryrun"][phase]
+def test_dryrun_phases(request, d, phase):
+    """Each dry-run phase ran on D ranks (the tensor-parallel ones on a
+    2×2 mesh at D = 4, D×1 otherwise), matched the single-device step (it
+    raises otherwise) and reports a finite loss."""
+    if d == 1:
+        rep = request.getfixturevalue("dryrun_one")[phase]
+    else:
+        rep = request.getfixturevalue("worlds")[d][1][0]["dryrun"][phase]
     assert rep["world"] == d
     assert np.isfinite(rep["loss"])
     assert all(e <= 1e-4 for e in rep["rel_err"].values())

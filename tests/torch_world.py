@@ -1,6 +1,7 @@
 """One rank of a gloo world that runs the PyTorch port's parallel cases on
-the CPU, for ``tests/test_torch_parallel.py``, ``test_torch_halo.py`` and
-``test_torch_multihost.py``.
+the CPU, for ``tests/test_torch_parallel.py``, ``test_torch_halo.py``,
+``test_torch_multihost.py``, ``test_torch_tp.py`` and
+``test_torch_gtn_sharded.py``.
 
     python tests/torch_world.py JOB RANK
 
@@ -303,6 +304,172 @@ def case_dryrun(mesh, width="tiny"):
     return reports
 
 
+def _tp_model(family, kw, state):
+    from graphneuralnetwork_tpu_torch.nn import GAT, GCN, HAN
+    from graphneuralnetwork_tpu_torch.nn.gtn import GTN
+
+    make = {"gcn": GCN, "gat": GAT, "han": HAN, "gtn": GTN}[family]
+    m = _module(lambda: make(**kw), state)
+    m.eval()
+    return m
+
+
+def case_tp(mesh, family, shape, kw, state, x, labels, idx, s=None, r=None,
+            w=None, edges=None, adj=None, tiled=False):
+    """One dp x tp step of ``family`` on a ``shape`` ("data", "model") mesh
+    (dropout off): this rank's mesh coordinates, its parameter slices,
+    their gradients (summed over the data sub-mesh), its rows' logits, and
+    the loss (every data rank's share summed), the mean cross-entropy over
+    the global rows ``idx``."""
+    import torch
+
+    from graphneuralnetwork_tpu_torch.parallel import (
+        partition_graph_halo, shard_nodes_halo)
+    from graphneuralnetwork_tpu_torch.parallel.collectives import (
+        all_reduce_gradients, all_reduce_sum)
+    from graphneuralnetwork_tpu_torch.parallel.dp import (
+        dp_cross_entropy, owned_rows)
+    from graphneuralnetwork_tpu_torch.parallel.tp import (
+        make_tp_mesh, shard_rows)
+    from graphneuralnetwork_tpu_torch.parallel.tp_models import (
+        gtn_rows, tensor_parallel)
+
+    tpm = make_tp_mesh(*shape, device="cpu")
+    dm = tpm.axis("data")
+    tp = tensor_parallel(_tp_model(family, kw, state), tpm, family)
+    n = x.shape[0]
+    if family == "gtn":
+        a, xl = gtn_rows(adj, x, dm)
+        logits, y = tp(a, xl), shard_rows(labels, dm)
+        nps = a.shape[1]
+    else:
+        graphs = [partition_graph_halo(
+            s2, r2, n, w2, mesh=dm, tiled_interior=tiled,
+            min_edges_per_tile=8)
+            for s2, r2, w2 in (edges or [(s, r, w)])]
+        xl, y = shard_nodes_halo(x, graphs[0]), shard_nodes_halo(labels,
+                                                                 graphs[0])
+        logits = tp(graphs if family == "han" else graphs[0], xl)
+        nps = graphs[0].nodes_per_shard
+    rows = owned_rows(torch.from_numpy(idx), dm.rank, nps)
+    loss = dp_cross_entropy(logits, y.long(), rows, dm)
+    loss.backward()
+    all_reduce_gradients(tp.parameters(), dm)
+    return {"coords": tpm.coords, "logits": _np(logits),
+            "shards": {k: _np(v) for k, v in tp.state_dict().items()},
+            "grads": _grads(tp),
+            "loss": float(all_reduce_sum(loss.detach(), dm))}
+
+
+def case_gtn_rows(mesh, kw, state, adj, x):
+    """The dense GTN on this rank's rows of the stack (a 1-D mesh): its
+    rows' logits and the gradients of the sum of the logits' squares over
+    the real rows (summed over the ranks)."""
+    from graphneuralnetwork_tpu_torch.parallel.collectives import (
+        all_reduce_gradients)
+    from graphneuralnetwork_tpu_torch.parallel.tp_models import (
+        TPGTN, gtn_rows)
+
+    tp = TPGTN(_tp_model("gtn", kw, state), mesh)
+    a, xl = gtn_rows(adj, x, mesh)
+    out = tp(a, xl)
+    nl, n = a.shape[1], x.shape[0]
+    real = max(0, min(nl, n - mesh.rank * nl))
+    (out[:real] ** 2).sum().backward()
+    all_reduce_gradients(tp.parameters(), mesh)
+    return {"out": _np(out), "grads": _grads(tp)}
+
+
+def case_dcp(mesh, tmp, shape, kw, state, x, labels, idx, s, r, w):
+    """A dp x tp GCN after one Adam step saved with the sharded backend,
+    restored into a blank model and optimizer: whether every slice and
+    moment came back, ``latest_step``, and the backend detected after a
+    single-file save over it."""
+    import torch
+
+    from graphneuralnetwork_tpu_torch.parallel import (
+        partition_graph_halo, shard_nodes_halo)
+    from graphneuralnetwork_tpu_torch.parallel.dp import (
+        dp_cross_entropy, owned_rows)
+    from graphneuralnetwork_tpu_torch.parallel.tp import make_tp_mesh
+    from graphneuralnetwork_tpu_torch.parallel.tp_models import (
+        tensor_parallel, tp_step)
+    from graphneuralnetwork_tpu_torch.train import checkpoint
+    from graphneuralnetwork_tpu_torch.train.loop import TrainState
+
+    tpm = make_tp_mesh(*shape, device="cpu")
+    dm = tpm.axis("data")
+    tp = tensor_parallel(_tp_model("gcn", kw, state), tpm, "gcn")
+    hg = partition_graph_halo(s, r, x.shape[0], w, mesh=dm)
+    xl, y = shard_nodes_halo(x, hg), shard_nodes_halo(labels, hg).long()
+    rows = owned_rows(torch.from_numpy(idx), dm.rank, hg.nodes_per_shard)
+    opt = torch.optim.Adam(tp.parameters(), lr=1e-2)
+    tp_step(tp, opt, lambda: dp_cross_entropy(tp(hg, xl), y, rows, dm))
+    st = TrainState(tp, opt, None, torch.Generator())
+    path = checkpoint.save_checkpoint(tmp, st, 5, backend="dcp")
+
+    blank = tensor_parallel(_tp_model("gcn", kw, state), tpm, "gcn")
+    with torch.no_grad():
+        for p in blank.parameters():
+            p.zero_()
+    opt2 = torch.optim.Adam(blank.parameters(), lr=1e-2)
+    st2, step = checkpoint.restore_checkpoint(tmp, TrainState(
+        blank, opt2, None, torch.Generator()))
+    same = all(torch.equal(a, b) for a, b in zip(tp.parameters(),
+                                                 blank.parameters()))
+    moments = all(
+        torch.equal(opt.state[a][k], opt2.state[b][k])
+        for a, b in zip(tp.parameters(), blank.parameters())
+        for k in ("exp_avg", "exp_avg_sq", "step"))
+    res = {"path": path, "step": step, "same_params": same,
+           "same_moments": moments, "latest": checkpoint.latest_step(tmp),
+           "backend": checkpoint.last_backend(tmp),
+           "files": sorted(os.listdir(path))}
+    import torch.distributed as dist
+    dist.barrier()
+    checkpoint.save_checkpoint(tmp, st, 6)
+    dist.barrier()
+    res["backend_after_file"] = checkpoint.last_backend(tmp)
+    res["latest_after_file"] = checkpoint.latest_step(tmp)
+    return res
+
+
+def case_sparse_gtn(mesh, kw, state, plan_args, x, blocked=0, shape=None):
+    """The wedge-plan GTN on a plan sharded over the ranks: the logits and
+    the gradients of the sum of their squares, on every rank, with no
+    all-reduce after the backward; with ``blocked``, also the logits and
+    gradients at ``wedge_block=blocked``. With ``shape``, the plan is
+    sharded over the "data" axis of a ("data", "model") mesh of that
+    shape, each model column holding a copy."""
+    import torch
+
+    from graphneuralnetwork_tpu_torch.nn.gtn_sparse import (
+        SparseGTN, build_gtn_plan)
+    from graphneuralnetwork_tpu_torch.parallel.gtn_sparse import (
+        shard_gtn_plan)
+    from graphneuralnetwork_tpu_torch.parallel.tp import make_tp_mesh
+
+    if shape is not None:
+        mesh = make_tp_mesh(*shape, device="cpu")
+    splan = shard_gtn_plan(build_gtn_plan(*plan_args, device="cpu"), mesh)
+    res = {"slot_cnt": splan.slot_cnt[0], "wedges": splan.wedge_cnt}
+    for name, wb in (("unblocked", 8_000_000), ("blocked", blocked)):
+        if not wb:
+            continue
+        m = _module(lambda: SparseGTN(**kw, wedge_block=wb), state)
+        out = m(splan, torch.from_numpy(x))
+        (out ** 2).sum().backward()
+        res[name] = {"out": _np(out), "grads": _grads(m)}
+    return res
+
+
+def case_bench_scaling(mesh, argv):
+    """``tools/bench_scaling.py``'s JSON records on this world."""
+    from graphneuralnetwork_tpu_torch.tools import bench_scaling
+
+    return bench_scaling.main(argv)
+
+
 def case_multihost(mesh):
     """The mesh helpers inside a world."""
     import torch.distributed as dist
@@ -319,6 +486,17 @@ def case_multihost(mesh):
         m2 = make_mesh(("data", "model"), shape=(n // 2, 2), device="cpu")
         res["mesh_2d"] = m2.devices.tolist()
         res["mesh_2d_shape"] = m2.shape
+        res["coords"] = m2.coords
+        res["axes"] = {a: (m2.axis(a).devices.tolist(), m2.axis(a).rank,
+                           m2.axis(a).group is not None)
+                       for a in ("data", "model")}
+        # every line's group was created on every rank: a collective over
+        # each axis sums that line's ranks
+        import torch
+        from graphneuralnetwork_tpu_torch.parallel.collectives import (
+            all_reduce_sum)
+        res["axis_sums"] = {a: float(all_reduce_sum(torch.tensor(
+            float(dist.get_rank())), m2.axis(a))) for a in ("data", "model")}
     try:
         make_mesh(("data", "model"))
         res["needs_shape"] = False
