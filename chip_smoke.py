@@ -36,7 +36,13 @@ Phases, each printing one JSON line:
                GAT-COO's 8 heads x 8 with [E, 8] weights, and in its
                transposed forms (the gathered form's d x over the graph's
                sender-sorted transpose, and a sender gather's backward:
-               per-edge values read at the edge ids) at the same shapes;
+               per-edge values read at the edge ids) at the same shapes,
+               and in its dot mode (GAT-COO's attention-weight gradient
+               formed beside d x in the transposed walk) at GAT-COO's two
+               layers on an ogbn-arxiv-shaped graph (8 heads x 8 and 1 x
+               40, float32 and bfloat16; 5 heads of 9, a head over two
+               slabs), beside the launch without the dot and the PyTorch
+               path it replaced;
                K2 also on a graph with a hub row and in its gathered form on
                the remainders of SAGE's Pubmed hybrid (C 500 and 128), of
                the Cora GAT hybrid and of the 2M-edge community graph (the
@@ -250,7 +256,7 @@ import torch
 from graphneuralnetwork_tpu_torch.cli import main as cli_main
 from graphneuralnetwork_tpu_torch.core.bcsr import (COL_BLOCK, ROW_BLOCK,
                                                     build_hybrid)
-from graphneuralnetwork_tpu_torch.core.graph import build_graph
+from graphneuralnetwork_tpu_torch.core.graph import build_graph, gcn_graph
 from graphneuralnetwork_tpu_torch.data import acm as acm_data
 from graphneuralnetwork_tpu_torch.data import (load_acm_gtn, load_acm_han,
                                                load_cora, synthetic_acm,
@@ -927,6 +933,115 @@ def _k1_gathered_cases(label, graph, table, weight, round_weight,
     return cases
 
 
+#: ogbn-arxiv's nodes and undirected edges (``_arxiv_graph``)
+ARXIV_NODES, ARXIV_EDGES = 169_343, 1_166_243
+
+
+def _arxiv_graph():
+    """ogbn-arxiv's counts: the cited end by Pareto(2) weights, the citing
+    end uniform, duplicates and self loops dropped, then symmetrised with
+    self loops (``gcn_graph``): 2,501,829 directed edges, from a fixed
+    seed."""
+    n = ARXIV_NODES
+    rng = np.random.default_rng(20260101)
+    w = ((np.arange(n) + 0.5) / n) ** -0.5
+    w = w[rng.permutation(n)]
+    cited = rng.choice(n, size=ARXIV_EDGES + ARXIV_EDGES // 4,
+                       p=w / w.sum())
+    citing = rng.integers(0, n, cited.shape[0])
+    lo, hi = np.minimum(cited, citing), np.maximum(cited, citing)
+    keys = np.unique((lo * n + hi)[lo != hi])[:ARXIV_EDGES]
+    return gcn_graph((keys // n).astype(np.int32),
+                     (keys % n).astype(np.int32), n, device=DEVICE).warm()
+
+
+def _k1_dot_case(label, graph, heads, f, dtype, gen):
+    """K1's dot mode as ``_GatherSum.backward`` runs it over ``graph``'s
+    transpose: ``d x`` and the attention weights' gradient ``d w[e, h] =
+    g[recv_e] · x[send_e]`` (per head) in one launch, at ``heads`` x
+    ``f`` in ``dtype`` with float32 [E, heads] weights. ``d w`` is held
+    against its plain version (``gathered_dot_plain``) within
+    ``TOL["float32"]`` of each edge and head's sum of |terms|, its padding
+    rows 0; the launch's ``d x`` equals the launch's without the dot bit
+    for bit, and the dot alone (the sum's store left out) the same ``d w``.
+    Times the dot launch (``kernel_ms``), the launch without the dot
+    (``dx_ms``), the dot alone (``dw_alone_ms``), the plain dot
+    (``plain_ms``) and the path the dot replaced (``replaced_ms``: the two
+    [E, C] float32 gathers ``g[receivers]`` and ``x[senders]``, their
+    product, its reduction by head and the zero-filled copy into ``d
+    w``). The bound counts the walk's bytes (``walk_bound_ms``: the
+    gathered rows that the edges name once, the gather index, the weights
+    and their index, the spans and ``d x``) plus each sender row's ``x``
+    once and ``d w`` written once."""
+    t, e, n = graph.transpose, graph.n_edges, graph.n_nodes
+    c, elt = heads * f, torch.tensor([], dtype=dtype).element_size()
+    g = torch.randn(n, c, generator=gen, device=DEVICE).to(dtype)
+    x = torch.randn(n, c, generator=gen, device=DEVICE).to(dtype)
+    w = torch.rand(graph.n_edge_pad, heads, generator=gen, device=DEVICE)
+    w = w[:, 0].contiguous() if heads == 1 else w
+    kw = dict(senders=t.receivers, weight=w, weight_at=t.edge_ids,
+              n_edges=e, long_rows=t.long_rows, long_edges=graph.long_edges)
+
+    def dx():
+        return k1.segment_sum(g, t.senders, t.row_ptr, n, **kw)
+
+    def kernel():
+        return k1.segment_sum(g, t.senders, t.row_ptr, n, dot=x, **kw)
+
+    def dw_alone():
+        return k1.segment_sum(g, t.senders, t.row_ptr, n, dot=x,
+                              need_sum=False, **kw)
+
+    recv, send = graph.receivers[:e], graph.senders[:e]
+
+    def replaced():
+        prod = (g[recv].float().reshape(e, heads, f)
+                * x[send].float().reshape(e, heads, f))
+        dw = w.new_zeros(w.shape)
+        dw[:e] = prod.sum(-1).reshape(dw[:e].shape)
+        return dw
+
+    args = (t.receivers[:e], x, t.senders[:e], w, t.edge_ids[:e])
+
+    def plain():
+        return k1.gathered_dot_plain(g, *args)
+
+    out, dw = kernel()
+    name = f"K1 {label} dot {heads}x{f} {dtype}"
+    if not torch.equal(out, dx()):
+        raise AssertionError(f"{name}: d x differs with the dot")
+    if not torch.equal(dw_alone()[1], dw):
+        raise AssertionError(f"{name}: the dot alone differs")
+    if dw[e:].any():
+        raise AssertionError(f"{name}: d w's padding rows are not 0")
+    ref = plain()
+    scale = k1.gathered_dot_plain(g.float().abs(), t.receivers[:e],
+                                  x.float().abs(), *args[2:])
+    torch.cuda.synchronize()
+    err, rtol, atol = _check(name, dw, ref, "float32", scale)
+    replaced_err = float((replaced() - ref).abs().max())
+    named = int(t.receivers[:e].unique().numel())
+    rows = int((t.row_ptr[1:] > t.row_ptr[:-1]).sum())
+    walk = (named * c * elt + e * 4 + e * heads * 4 + e * 4 + (n + 1) * 4
+            + n * c * elt)
+    n_bytes = walk + rows * c * elt + e * heads * 4
+    b_ms, b_by = bound(n_bytes, 4 * e * c)
+    return dict(
+        kernel="K1", form="dot", shape=[n, c], heads=heads, edges_read=e,
+        rows_named=named, dtype=str(dtype).replace("torch.", ""), n_out=n,
+        graph=label, max_abs_err=err, rtol=rtol, atol=atol,
+        layout=_k1_layout(g, c, heads, n, e),
+        long_rows=int(t.long_rows.numel()), kernel_ms=time_ms(kernel),
+        dx_ms=time_ms(dx), dw_alone_ms=time_ms(dw_alone),
+        plain_ms=time_ms(plain), replaced_ms=time_ms(replaced),
+        replaced_max_abs_err=replaced_err,
+        replaced="two [E, C] float32 gathers, their product, the reduction "
+                 "by head, the copy into d w",
+        library_ms=None, library="none: a gather, a product and a reduce",
+        walk_bound_ms=walk / PEAK_BYTES_PER_S * 1e3, bound_ms=b_ms,
+        bound_by=b_by, bytes=n_bytes)
+
+
 def _k2_case(graph, src, senders, label):
     """K2 on ``graph`` against its plain version, exactly: per-edge scores
     (``senders`` None; only the spanned edges count, as in K1) or a node
@@ -1025,6 +1140,19 @@ def phase_kernels(cora, cora_hg, pubmed_hg, large) -> tuple[list, float]:
                     sender_gather=f == 64 and dtype == torch.float32):
                 cases.append(case)
                 emit({"phase": "kernels", **case})
+    # the dot mode as GAT-COO's backward runs it on an ogbn-arxiv-shaped
+    # graph: its two layers (8 heads x 8, 1 x 40), and 5 heads of 9,
+    # whose third head straddles two slabs
+    arxiv, dot_gen = _arxiv_graph(), torch.Generator(
+        device=DEVICE).manual_seed(23)
+    for heads, f, dtype in [(h, f, d) for d in (torch.float32,
+                                                torch.bfloat16)
+                            for h, f in ((8, 8), (1, 40))] + [
+                                (5, 9, torch.float32)]:
+        cases.append(_k1_dot_case("arxiv", arxiv, heads, f, dtype,
+                                  dot_gen))
+        emit({"phase": "kernels", **cases[-1]})
+    del arxiv
     # the same main-path case with row spans over the padded edge list
     # (the last row then holds all padding edges): what skipping them buys
     padded_ptr = torch.cat([g.row_ptr[:-1], g.row_ptr.new_tensor(
@@ -2111,9 +2239,10 @@ HAN_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (3e-2, 3e-2)}
 #: validation pass; COO forward per metapath: K2 (shift) + K1
 #: (denominator) + K1 (aggregation), backward 4 K1 (as GAT-COO's: the
 #: aggregation's d h, the denominator's read-back, the scores' sender and
-#: receiver gathers)
+#: receiver gathers), the aggregation's launch also forming the attention
+#: weights' gradient (``K1_dw``)
 HAN_HYBRID = {"K4": (2, 2), "K5": (2, 0), "K6": (2, 0)}
-HAN_COO = {"K1": (12, 4), "K2": (2, 2)}
+HAN_COO = {"K1": (12, 4), "K2": (2, 2), "K1_dw": (2, 0)}
 #: phase: (argv, launches, (n_papers, layout, dtype) of the timed block;
 #: None for ``han_batch``, which runs eager steps and no kernel)
 HAN_RUNS = {
@@ -2283,10 +2412,11 @@ GTN_DENSE_SPARSE = 2e-4
 #: 1's composition, the final degree sum, the final ``spmm_weighted``),
 #: its backward five times (each composition's transpose, over the wedges
 #: sorted by input slot; the two degree read-backs' sums by row; the
-#: convolution's d x over the final graph's transpose; the degree sums'
-#: backward are gathers). The dense model runs matrix products and no
-#: kernel of the port.
-GTN_SPARSE = {"K1": (10, 5)}
+#: convolution's d x over the final graph's transpose, which also forms
+#: its edge weights' gradient, ``K1_dw``; the degree sums' backward are
+#: gathers). The dense model runs matrix products and no kernel of the
+#: port.
+GTN_SPARSE = {"K1": (10, 5), "K1_dw": (1, 0)}
 GTN_RUNS = {
     "gtn": (["--model", "gtn"], {}),
     "gtn_bf16": (["--model", "gtn", "--dtype", "bfloat16"], {}),
@@ -3777,14 +3907,17 @@ def previous_design(cases) -> dict:
 #: K2 and 1 K7); ``gtn_dense`` none (its products are cuBLAS's, as JAX's
 #: are XLA's); ``gtn_sparse`` the sparse GTN's training step (the
 #: compositions forward and backward, the degree sums and their
-#: read-backs, the final convolution and its d x).
+#: read-backs, the final convolution and its d x). Each numerator's d h
+#: launch also forms its attention weights' gradient (``K1_dw``: interior
+#: and boundary for a halo GAT layer, one a metapath for HAN), as does
+#: the sparse GTN's final convolution.
 PARALLEL_LAUNCHES = {"gcn": {"K1": 8, "K3": 4},
-                     "gat": {"K1": 10, "K2": 2, "K7": 1},
-                     "han": {"K1": 20, "K2": 4},
+                     "gat": {"K1": 10, "K2": 2, "K7": 1, "K1_dw": 2},
+                     "han": {"K1": 20, "K2": 4, "K1_dw": 4},
                      "sage": {}, "skipgram": {}, "walks": {},
                      "tp_gcn": {"K1": 8, "K3": 4},
-                     "tp_gat": {"K1": 20, "K2": 4, "K7": 2},
-                     "gtn_dense": {}, "gtn_sparse": {"K1": 10}}
+                     "tp_gat": {"K1": 20, "K2": 4, "K7": 2, "K1_dw": 4},
+                     "gtn_dense": {}, "gtn_sparse": {"K1": 10, "K1_dw": 1}}
 #: The halo GCN's training run: the CLI's epochs and REPRO criterion.
 PARALLEL_EPOCHS, PARALLEL_ACC = 200, 0.80
 #: Steps each dry-run phase is timed over.
@@ -4278,13 +4411,14 @@ def main() -> None:
     # shift), K1 (the denominator) and K1 (the aggregation); backward 4 K1:
     # the aggregation's d h over the transpose, the denominator's
     # read-back by receiver, the scores' gathers by sender (over the
-    # transpose) and by receiver
+    # transpose) and by receiver; the d h launch also forms the attention
+    # weights' gradient (K1_dw)
     runs += [
         _drive("gcn", ["--model", "gcn", "--epochs", str(GCN_EPOCHS),
                        "--device", DEVICE, "--quiet"], {"K1": (6, 2)}),
         _drive("gat", ["--model", "gat", "--layout", "coo", "--epochs",
                        str(GAT_EPOCHS), "--device", DEVICE, "--quiet"],
-               {"K1": (16, 4), "K2": (4, 2)}),
+               {"K1": (16, 4), "K2": (4, 2), "K1_dw": (2, 0)}),
     ]
     # per epoch: 2 layers x (train + val forward) K4, 2 layers x backward
     # K5 and K6; the final test evaluation adds one forward

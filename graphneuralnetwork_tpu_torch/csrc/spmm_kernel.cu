@@ -19,6 +19,23 @@
 // the backward of the gathered form; the per-edge form with idx = the edge
 // ids in sender order is the backward of a sender gather.
 //
+//   dot mode:  dw[wi(e), h] = sum over c of head h of
+//                             src[idx[e], c] * x[r, c]   (e in span(r))
+//
+// beside the gathered form with weights (kDot), in float32: x [N, C] is
+// the rows' own table in T. Over the transposed order (src the output's
+// gradient, x the forward's table, wperm the edge ids) that is the
+// gradient of the gathered form's weights, g[receiver] . x[sender] per
+// edge and head, written beside d x in the same walk; with out null the
+// launch writes dw alone. It replaces no TPU kernel: the JAX package
+// leaves this dot to XLA. Formed apart, it gathers both operands into
+// [E, C] float32 copies and reduces their product (about 5 GB of traffic
+// an epoch at ogbn-arxiv's GAT), where this walk already holds
+// g[receiver] and the row's x is one read a row.
+//
+// Bound of the dot mode: bytes, those of the walk it rides on plus the
+// rows' x once and dw written once (4 bytes an edge and head).
+//
 // Replaces the TPU kernels _spmm_kernel_hilo and _spmm_kernel_bf16 of
 // graphneuralnetwork_tpu/ops/pallas/spmm_kernel.py (:94, :119; launched by
 // _spmm_pallas_call at :177). The TPU kernel turned the scatter into a
@@ -62,6 +79,10 @@
 //     every call: here the kernel reads the sender, the weight and then the
 //     table row itself, and the backward is this kernel over the
 //     transposed order.
+// The dot mode folds each edge's products within the edge's own lanes (a
+// hub's CTA too puts each edge on one lane group), so it needs no fold
+// across warps; a head split over two slabs leaves a part in each slab's
+// dw, which the caller sums (a reduction in a fixed order).
 // No atomics, and every sum in a fixed order: the result is deterministic.
 
 #include <cuda_bf16.h>
@@ -88,9 +109,21 @@ struct SumArgs {
   const int* wperm;       // w read at wperm[e] (null: at e)
   const int* row_ptr;     // [n_rows + 1]
   const int* long_rows;   // [n_long] rows a CTA of their own takes
-  void* out;              // [n_rows, C]
+  void* out;              // [n_rows, C] (kDot: null for the dot alone)
   int n_rows, c, f, heads, lpe, group, row_warps, per, n_long, long_edges,
       round_w;
+  const void* x;          // [n_rows, C] each row's own vector (kDot)
+  float* dw;              // [n_slabs, dw_rows, heads] the dots (kDot)
+  int dw_rows;
+};
+
+// kDot: where this lane's vector lies in its head's run of vectors within
+// the slab (j of n; n = 0 for a lane that holds none), the longest run
+// (uniform over the grid), the edge's lanes, and this slab's part of dw.
+struct Dot {
+  unsigned mask;
+  int j, n, run;
+  long long slab;
 };
 
 template <typename T, int V>
@@ -148,14 +181,76 @@ __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));
 }
 
+template <int V>
+__device__ __forceinline__ Dot dot_lanes(const SumArgs& a, int lane, int vi,
+                                         int head, bool on) {
+  const int hv = a.f / V;   // vectors a head
+  const int s0 = blockIdx.y * a.per, s1 = min(s0 + a.per, a.c / V);
+  Dot d;
+  d.mask = a.lpe == 32 ? kFull
+                       : ((1u << a.lpe) - 1) << (lane & ~(a.lpe - 1));
+  d.run = min(hv, a.per);
+  d.j = 1;
+  d.n = 0;
+  if (on) {
+    const int h0 = max(head * hv, s0);
+    d.j = vi - h0;
+    d.n = min(head * hv + hv, s1) - h0;
+  }
+  d.slab = static_cast<long long>(blockIdx.y) * a.dw_rows * a.heads;
+  return d;
+}
+
+// kDot: the row's own vector at this lane's columns, as float (zeros for
+// row < 0 or a lane that holds no vector)
+template <typename T, int V, bool kDot>
+__device__ __forceinline__ void load_row(const SumArgs& a, int row, int col,
+                                         bool on, float (&xr)[V]) {
+  if constexpr (kDot) {
+    Pack<T, V> p;
+    const bool in = on && row >= 0;
+    if (in)
+      p = load_pack<T, V>(static_cast<const T*>(a.x) +
+                          static_cast<long long>(row) * a.c + col);
+#pragma unroll
+    for (int i = 0; i < V; ++i) xr[i] = in ? to_float(p.v[i]) : 0.f;
+  }
+}
+
+// kDot: one edge's dot with the row's own vector: this lane's V products
+// in column order, folded over the head's run by a tree of shuffles within
+// the edge's lanes (lane j takes lane j + off where j is a multiple of
+// 2 off), stored by the run's first lane at dw[wi, head]. Every lane of
+// the edge calls it.
+template <typename T, int V>
+__device__ __forceinline__ void edge_dot(const SumArgs& a, const Dot& d,
+                                         const float (&xr)[V],
+                                         const Pack<T, V>& v, int wi,
+                                         int head, bool on) {
+  float p = 0.f;
+  if (on)
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      p = __fadd_rn(p, __fmul_rn(to_float(v.v[i]), xr[i]));
+  for (int off = 1; off < d.run; off <<= 1) {
+    const float q = __shfl_down_sync(d.mask, p, off, a.lpe);
+    if ((d.j & (2 * off - 1)) == 0 && d.j + off < d.n) p += q;
+  }
+  if (on && d.j == 0)
+    a.dw[d.slab + static_cast<long long>(wi) * a.heads + head] = p;
+}
+
 // One lane's walk of the edges lo + eg, lo + eg + epg, ... below hi, U at a
 // time (the indices of all U first, then their values and weights), summed
-// into acc in edge order.
-template <typename T, int V, bool kGather, bool kWeight, int U>
+// into acc in edge order. kDot: every lane of an edge walks it (a lane
+// that holds no vector loads nothing but takes part in the edge's folds),
+// and each edge's dot with xr goes to dw (edge_dot).
+template <typename T, int V, bool kGather, bool kWeight, bool kDot, int U>
 __device__ __forceinline__ void walk(const SumArgs& a, int lo, int hi,
                                      int eg, int epg, int col, int head,
-                                     bool on, float (&acc)[V]) {
-  if (!on) return;
+                                     bool on, const Dot& d,
+                                     const float (&xr)[V], float (&acc)[V]) {
+  if (!kDot && !on) return;
   const T* src = static_cast<const T*>(a.src);
   for (int e = lo + eg; e < hi; e += epg * U) {
     int si[U], wi[U];
@@ -171,14 +266,14 @@ __device__ __forceinline__ void walk(const SumArgs& a, int lo, int hi,
     float wv[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (si[u] < 0) continue;
+      if (si[u] < 0 || (kDot && !on)) continue;
       v[u] = load_pack<T, V>(src + static_cast<long long>(si[u]) * a.c + col);
       if constexpr (kWeight)
         wv[u] = __ldg(a.w + static_cast<long long>(wi[u]) * a.heads + head);
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (si[u] < 0) continue;
+      if (si[u] < 0 || (kDot && !on)) continue;
       float wt = 1.f;
       if constexpr (kWeight) wt = a.round_w ? round_to<T>(wv[u]) : wv[u];
 #pragma unroll
@@ -187,6 +282,11 @@ __device__ __forceinline__ void walk(const SumArgs& a, int lo, int hi,
         if constexpr (kWeight) x = round_to<T>(__fmul_rn(wt, x));
         acc[i] += x;
       }
+    }
+    if constexpr (kDot) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)   // si[u] is uniform over the edge's lanes
+        if (si[u] >= 0) edge_dot<T, V>(a, d, xr, v[u], wi[u], head, on);
     }
   }
 }
@@ -218,9 +318,11 @@ __device__ __forceinline__ void group_fold(float (&acc)[V], int lpe,
       acc[i] += __shfl_xor_sync(kFull, acc[i], off);
 }
 
-template <typename T, int V>
+template <typename T, int V, bool kDot>
 __device__ __forceinline__ void store(const SumArgs& a, int row, int col,
                                       const float (&acc)[V]) {
+  if constexpr (kDot)
+    if (a.out == nullptr) return;   // the dot alone
   Pack<T, V> o;
 #pragma unroll
   for (int i = 0; i < V; ++i) o.v[i] = from_float<T>(acc[i]);
@@ -231,7 +333,7 @@ __device__ __forceinline__ void store(const SumArgs& a, int row, int col,
 // A row on rw warps (first .. first + rw - 1) of this CTA: each warp folds
 // its lanes, writes its partial, and the first warp adds them in warp
 // order. Every thread of the CTA calls it (two barriers).
-template <typename T, int V>
+template <typename T, int V, bool kDot>
 __device__ __forceinline__ void warps_fold_store(
     const SumArgs& a, float (&acc)[V], float (*part)[kSlabVecs * V],
     int warp, int first, int rw, int sub, int eg, bool on, bool mine,
@@ -248,7 +350,7 @@ __device__ __forceinline__ void warps_fold_store(
     for (int q = 0; q < rw; ++q)
 #pragma unroll
       for (int i = 0; i < V; ++i) t[i] += part[first + q][sub * V + i];
-    store<T, V>(a, row, col, t);
+    store<T, V, kDot>(a, row, col, t);
   }
   __syncthreads();
 }
@@ -260,8 +362,10 @@ __device__ __forceinline__ void warps_fold_store(
 // blockIdx.y is the slab: vectors [y * per, y * per + per) of the row's
 // c / V. Lane `sub` of an edge's lpe lanes holds the slab's vector sub; a
 // row's edge lanes (its group's, over all its warps) take its edges in
-// turn, warp by warp.
-template <typename T, int V, bool kGather, bool kWeight>
+// turn, warp by warp. kDot: each lane holds the walked row's own vector
+// at its columns (xr, loaded once a row), and every edge's lanes fold its
+// dot in the walk itself; no fold across the row's lanes or warps.
+template <typename T, int V, bool kGather, bool kWeight, bool kDot>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
     segment_sum_kernel(SumArgs a) {
   constexpr bool kBigRows = sizeof(T) * V <= 8;
@@ -276,17 +380,20 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
   const bool on = sub < a.per && vi < a.c / V;
   const int col = vi * V;
   const int head = kWeight && on ? col / a.f : 0;
-  float acc[V];
+  float acc[V], xr[V];
+  Dot d{};
+  if constexpr (kDot) d = dot_lanes<V>(a, lane, vi, head, on);
 
   if (split) {
     const int row = a.long_rows[blockIdx.x];
     const int lo = __ldg(a.row_ptr + row), hi = __ldg(a.row_ptr + row + 1);
 #pragma unroll
     for (int i = 0; i < V; ++i) acc[i] = 0.f;
-    walk<T, V, kGather, kWeight, kUnroll>(
-        a, lo, hi, warp * epg + eg, kWarps * epg, col, head, on, acc);
-    warps_fold_store<T, V>(a, acc, part, warp, 0, kWarps, sub, eg, on, true,
-                           row, col);
+    load_row<T, V, kDot>(a, row, col, on, xr);
+    walk<T, V, kGather, kWeight, kDot, kUnroll>(
+        a, lo, hi, warp * epg + eg, kWarps * epg, col, head, on, d, xr, acc);
+    warps_fold_store<T, V, kDot>(a, acc, part, warp, 0, kWarps, sub, eg, on,
+                                 true, row, col);
     return;
   }
 
@@ -301,10 +408,11 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
       row_span(a, row, lo, hi, mine);
 #pragma unroll
       for (int i = 0; i < V; ++i) acc[i] = 0.f;
-      walk<T, V, kGather, kWeight, kUnroll>(a, lo, hi, wr * epg + eg,
-                                            rw * epg, col, head, on, acc);
-      warps_fold_store<T, V>(a, acc, part, warp, first, rw, sub, eg, on,
-                             mine, row, col);
+      load_row<T, V, kDot>(a, hi > lo ? row : -1, col, on, xr);
+      walk<T, V, kGather, kWeight, kDot, kUnroll>(
+          a, lo, hi, wr * epg + eg, rw * epg, col, head, on, d, xr, acc);
+      warps_fold_store<T, V, kDot>(a, acc, part, warp, first, rw, sub, eg,
+                                   on, mine, row, col);
     }
     return;
   }
@@ -329,10 +437,11 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
     const bool big = kBigRows && mine && hi - lo > big_edges;
 #pragma unroll
     for (int i = 0; i < V; ++i) acc[i] = 0.f;
-    walk<T, V, kGather, kWeight, kUnroll>(a, lo, big ? lo : hi, eg, epg, col,
-                                          head, on, acc);
+    load_row<T, V, kDot>(a, hi > lo && !big ? row : -1, col, on, xr);
+    walk<T, V, kGather, kWeight, kDot, kUnroll>(a, lo, big ? lo : hi, eg, epg,
+                                                col, head, on, d, xr, acc);
     group_fold(acc, a.lpe, group);
-    if (eg == 0 && mine && !big && on) store<T, V>(a, row, col, acc);
+    if (eg == 0 && mine && !big && on) store<T, V, kDot>(a, row, col, acc);
     // the warp's big rows, by their groups' first lanes in lane order, each
     // on all 32 lanes (32 / lpe edge lanes)
     for (unsigned bigs = kBigRows ? __ballot_sync(kFull, big && gl == 0) : 0;
@@ -343,10 +452,12 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
       const int bhi = __shfl_sync(kFull, hi, first);
 #pragma unroll
       for (int i = 0; i < V; ++i) acc[i] = 0.f;
-      walk<T, V, kGather, kWeight, kUnroll>(a, blo, bhi, lane / a.lpe,
-                                            32 / a.lpe, col, head, on, acc);
+      load_row<T, V, kDot>(a, brow, col, on, xr);
+      walk<T, V, kGather, kWeight, kDot, kUnroll>(a, blo, bhi, lane / a.lpe,
+                                                  32 / a.lpe, col, head, on,
+                                                  d, xr, acc);
       group_fold(acc, a.lpe, 32);
-      if (lane < a.lpe && on) store<T, V>(a, brow, col, acc);
+      if (lane < a.lpe && on) store<T, V, kDot>(a, brow, col, acc);
     }
     set += stride;
     row = nrow;
@@ -358,12 +469,18 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 
 template <typename T, int V>
 cudaError_t launch(const SumArgs& a, dim3 grid, cudaStream_t s) {
-  if (a.w != nullptr)
-    segment_sum_kernel<T, V, true, true><<<grid, kWarps * 32, 0, s>>>(a);
+  if (a.dw != nullptr)
+    segment_sum_kernel<T, V, true, true, true>
+        <<<grid, kWarps * 32, 0, s>>>(a);
+  else if (a.w != nullptr)
+    segment_sum_kernel<T, V, true, true, false>
+        <<<grid, kWarps * 32, 0, s>>>(a);
   else if (a.idx != nullptr)
-    segment_sum_kernel<T, V, true, false><<<grid, kWarps * 32, 0, s>>>(a);
+    segment_sum_kernel<T, V, true, false, false>
+        <<<grid, kWarps * 32, 0, s>>>(a);
   else
-    segment_sum_kernel<T, V, false, false><<<grid, kWarps * 32, 0, s>>>(a);
+    segment_sum_kernel<T, V, false, false, false>
+        <<<grid, kWarps * 32, 0, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -384,7 +501,11 @@ bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 // `per` vectors (per <= lpe) on the grid's second dimension, `n_slabs` of
 // them; at most row_ctas CTAs for the rows (0: as many as the rows take),
 // which loop over the rest; long_rows: the n_long rows with more than
-// long_edges edges, each over a CTA. Returns the launch's cudaError_t.
+// long_edges edges, each over a CTA. x and dw (both null, or both given
+// with w): the dot mode, x [n_rows, c] in the values' type, dw float32
+// [n_slabs, dw_rows, c / f], each slab's part of the dots (the caller sums
+// them where n_slabs > 1); out may then be null (the dot alone). Returns
+// the launch's cudaError_t.
 extern "C" int gnn_segment_sum(const void* src, const void* idx,
                                const void* w, const void* wperm,
                                const void* row_ptr, const void* long_rows,
@@ -392,7 +513,8 @@ extern "C" int gnn_segment_sum(const void* src, const void* idx,
                                int dtype, int vec, int lpe, int group,
                                int row_warps, int per, int n_slabs,
                                int row_ctas, int n_long, int long_edges,
-                               int round_w, void* stream) {
+                               int round_w, const void* x, void* dw,
+                               int dw_rows, void* stream) {
   if (n_rows <= 0 || c <= 0) return 0;
   if ((dtype != 0 && dtype != 1) ||
       (vec != 1 && vec != 2 && vec != (dtype == 0 ? 4 : 8) &&
@@ -403,12 +525,16 @@ extern "C" int gnn_segment_sum(const void* src, const void* idx,
       !pow2(row_warps) || row_warps > 8 || (row_warps > 1 && group != 32) ||
       per < 1 || per > lpe ||
       static_cast<long long>(per) * n_slabs < c / vec ||
-      (n_long > 0 && long_rows == nullptr))
+      (n_long > 0 && long_rows == nullptr) ||
+      ((x == nullptr) != (dw == nullptr)) ||
+      (dw != nullptr && (w == nullptr || dw_rows <= 0)) ||
+      (out == nullptr && dw == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   SumArgs a{src, static_cast<const int*>(idx), static_cast<const float*>(w),
             static_cast<const int*>(wperm), static_cast<const int*>(row_ptr),
             static_cast<const int*>(long_rows), out, n_rows, c, f, c / f,
-            lpe, group, row_warps, per, n_long, long_edges, round_w};
+            lpe, group, row_warps, per, n_long, long_edges, round_w,
+            x, static_cast<float*>(dw), dw_rows};
   const int rows_per_cta =
       row_warps > 1 ? kWarps / row_warps : kWarps * (32 / group);
   const int needed = (n_rows + rows_per_cta - 1) / rows_per_cta;

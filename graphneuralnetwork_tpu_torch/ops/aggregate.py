@@ -10,8 +10,16 @@ gather folded in: ``out[r] = Σ_e round(w_e · x[senders_e])`` (per head for
 ``weight`` [E, H]), which SpMM and the attention-weighted aggregation are.
 Its backward needs no sort: ``d x`` is the same kernel over
 ``Graph.transpose`` (the receivers in sender order, the weights read
-through the edge ids), ``d w`` the per-edge dot ``g[recv] · x[send]``
-where the weights need one.
+through the edge ids), and where the weights need a gradient the same
+launch forms ``d w``, the per-edge, per-head dot ``g[recv] · x[send]``, in
+K1's dot mode: each row of the transposed walk is a sender, whose ``x``
+row K1 reads once beside the ``g[recv]`` rows it already reads for ``d x``,
+and each edge's dot goes to ``d w`` at its id. That replaces no TPU kernel
+(the JAX package leaves the dot to XLA). Formed apart, the dot takes two
+[E, C] float32 gathers, their product and its reduction: 8.8 of a 24.5 ms
+GAT epoch at ogbn-arxiv's shape on an H100, against 0.3 ms in the walk.
+Its bound is bytes: the walk's own, plus each row's ``x`` read once and
+``d w`` written once.
 
 ``gather_receivers`` and ``gather_senders`` index a node table by the
 graph's receivers or senders ([E_pad, ...]); their backward sums the
@@ -116,27 +124,23 @@ class _GatherSum(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         graph = ctx.graph
-        g = g.contiguous()
+        need_dx, need_dw = ctx.needs_input_grad[:2]
         dx = dw = None
-        if ctx.needs_input_grad[0]:
+        if need_dx or need_dw:
             t = graph.transpose
             with span("op.gather_sum.backward.dx"):
-                dx = segment_sum(g, t.senders, t.row_ptr, graph.sender_rows,
-                                 senders=t.receivers, weight=w,
-                                 weight_at=t.edge_ids,
-                                 round_weight=ctx.round_weight,
-                                 n_edges=graph.n_edges,
-                                 long_rows=t.long_rows,
-                                 long_edges=graph.long_edges)
-        if ctx.needs_input_grad[1]:
-            e = graph.n_edges
-            heads = 1 if w.ndim == 1 else w.shape[1]
-            per = x.shape[1] // heads
-            with span("op.gather_sum.backward.dw"):
-                dot = (g[graph.receivers[:e]].float().reshape(e, heads, per)
-                       * x[graph.senders[:e]].float().reshape(e, heads, per))
-                dw = w.new_zeros(w.shape)
-                dw[:e] = dot.sum(-1).reshape(dw[:e].shape)
+                res = segment_sum(g.contiguous(), t.senders, t.row_ptr,
+                                  graph.sender_rows, senders=t.receivers,
+                                  weight=w, weight_at=t.edge_ids,
+                                  round_weight=ctx.round_weight,
+                                  n_edges=graph.n_edges,
+                                  long_rows=t.long_rows,
+                                  long_edges=graph.long_edges,
+                                  dot=x if need_dw else None,
+                                  need_sum=need_dx)
+            dx, dw = res if need_dw else (res, None)
+            if need_dw:
+                dw = dw.to(w.dtype)
         return dx, dw, None, None
 
 

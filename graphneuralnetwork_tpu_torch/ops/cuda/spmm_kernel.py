@@ -19,6 +19,20 @@ product rounds to ``T`` before it is added. ``span(r)`` is
 ``graphneuralnetwork_tpu/ops/pallas/spmm_kernel.py`` (``_spmm_pallas_call``);
 the design note is in the CUDA source.
 
+Given ``dot`` (a table [n_out, C] in the values' type, with a weight), the
+same launch also forms the per-edge, per-head dot
+
+    dw[wi(e), h] = Σ_{c ∈ head h} values[senders[e], c] · dot[r, c]
+
+for each edge ``e`` of ``span(r)``, in float32, shaped as the weight
+(its rows past the spanned edges zero; ``weight_at`` must then be a
+permutation of the first ``n_edges`` ids, as the transpose's edge ids
+are), and returns ``(out, dw)``; ``need_sum=False`` leaves the sum out
+(``out`` None). Over a graph's transpose that is the
+gathered form's weight gradient beside its ``d x``. The dot mode replaces
+no TPU kernel (the JAX package leaves the dot to XLA); the CPU takes its
+plain version, ``gathered_dot_plain``.
+
 Only the edges that ``row_ptr`` spans count: edges ``e >= row_ptr[-1]``
 (a graph's padding) are ignored whatever their values. A CUDA tensor
 launches the kernel; a CPU tensor takes the plain version on the spanned
@@ -28,7 +42,8 @@ an edge from the width, lanes and warps a row from the mean row length,
 the row count and how many fill the card) and takes the rows that a CTA of
 their own takes from ``long_rows`` (``Graph.long_rows`` or the
 transpose's); ``spmm_args`` builds the launch arguments.
-``segment_sum.launches`` counts kernel launches.
+``segment_sum.launches`` counts kernel launches, ``segment_sum_dw.launches``
+those of them that carry the dot.
 """
 
 from __future__ import annotations
@@ -36,6 +51,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+import types
 from typing import Optional
 
 import torch
@@ -98,6 +114,29 @@ def gathered_plain(table: torch.Tensor, senders: torch.Tensor,
     c = rows.shape[1]
     prod = rows.float().reshape(e, h, c // h) * w.float()[:, :, None]
     return prod.to(table.dtype).reshape(e, c)
+
+
+def gathered_dot_plain(table: torch.Tensor, senders: torch.Tensor,
+                       own: torch.Tensor, rows: torch.Tensor,
+                       weight: torch.Tensor,
+                       weight_at: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The dot mode in plain PyTorch: per edge ``e`` (of ``senders``' E)
+    and head ``h``, ``Σ_c table[senders[e], c] · own[rows[e], c]`` over the
+    head's columns in float32, written at ``weight_at[e]`` (None: at ``e``)
+    of a zero float32 tensor shaped as ``weight``."""
+    e = senders.shape[0]
+    heads = 1 if weight.ndim == 1 else weight.shape[1]
+    c = table.shape[1]
+    dot = (table[senders.long()].float().reshape(e, heads, c // heads)
+           * own[rows.long()].float().reshape(e, heads, c // heads)).sum(-1)
+    dw = torch.zeros(weight.shape[0], heads, dtype=torch.float32,
+                     device=table.device)
+    if weight_at is None:
+        dw[:e] = dot
+    else:
+        dw[weight_at.long()] = dot
+    return dw.reshape(weight.shape)
 
 
 def _pow2_at_least(v: int) -> int:
@@ -169,36 +208,53 @@ def spmm_layout(c: int, f: int, elt: int, mean_row_edges: float,
 
 #: pointers (src, idx, w, wperm, row_ptr, long_rows, out), n_rows, c, f,
 #: dtype, the layout (vec, lpe, group, row_warps, per, n_slabs, row_ctas),
-#: n_long, long_edges, round_w, stream
+#: n_long, long_edges, round_w, the dot mode's pointers (x, dw) and dw's
+#: rows, stream
 _ENTRIES = {"gnn_segment_sum": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14
-            + [ctypes.c_void_p]}
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]}
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _args_layout(values: torch.Tensor, weight: Optional[torch.Tensor],
+                 out: Optional[torch.Tensor], dot: Optional[torch.Tensor],
+                 n: int, n_edges: int, sm_count: int) -> SpmmLayout:
+    """The launch's layout: ``spmm_layout`` at the operands' alignment."""
+    c = values.shape[1]
+    heads = 1 if weight is None or weight.ndim == 1 else weight.shape[1]
+    addr = values.data_ptr() | (0 if out is None else out.data_ptr()) | (
+        0 if dot is None else dot.data_ptr())
+    align = min(addr & -addr, 32) if addr else 32
+    return spmm_layout(c, c // heads, values.element_size(),
+                       n_edges / max(n, 1), n, sm_count, align)
+
+
 def spmm_args(values: torch.Tensor, senders: Optional[torch.Tensor],
               weight: Optional[torch.Tensor],
               weight_at: Optional[torch.Tensor], round_weight: bool,
               row_ptr: torch.Tensor, long_rows: Optional[torch.Tensor],
-              long_edges: int, out: torch.Tensor, n_edges: int, stream: int,
-              sm_count: int) -> list:
+              long_edges: int, out: Optional[torch.Tensor], n_edges: int,
+              stream: int, sm_count: int,
+              dot: Optional[torch.Tensor] = None,
+              dw: Optional[torch.Tensor] = None,
+              lay: Optional[SpmmLayout] = None) -> list:
     """``gnn_segment_sum``'s arguments (``_ENTRIES``) on a card of
     ``sm_count`` SMs; ``n_edges`` (the spanned edges, a host count) sets
-    the mean row length."""
-    n, c = out.shape
+    the mean row length. The dot mode: ``dot`` and ``dw`` ([lay.n_slabs,
+    weight rows, H]), ``out`` None for the dot alone. ``lay``: the layout
+    the caller sized ``dw`` by (None: ``_args_layout``'s)."""
+    n, c = row_ptr.shape[0] - 1, values.shape[1]
     heads = 1 if weight is None or weight.ndim == 1 else weight.shape[1]
-    f = c // heads
-    addr = values.data_ptr() | out.data_ptr()
-    align = min(addr & -addr, 32) if addr else 32
-    lay = spmm_layout(c, f, values.element_size(), n_edges / max(n, 1), n,
-                      sm_count, align)
+    if lay is None:
+        lay = _args_layout(values, weight, out, dot, n, n_edges, sm_count)
     n_long = 0 if long_rows is None else long_rows.numel()
     return [values.data_ptr(), _ptr(senders), _ptr(weight), _ptr(weight_at),
-            row_ptr.data_ptr(), _ptr(long_rows), out.data_ptr(), n, c, f,
+            row_ptr.data_ptr(), _ptr(long_rows), _ptr(out), n, c, c // heads,
             _DTYPE_CODES[values.dtype], *lay.args(), n_long,
-            long_edges if n_long else 0, int(round_weight), stream]
+            long_edges if n_long else 0, int(round_weight), _ptr(dot),
+            _ptr(dw), 0 if dw is None else dw.shape[1], stream]
 
 
 def _int32_on(t, device, what, at_least):
@@ -217,23 +273,33 @@ def segment_sum(values: torch.Tensor, receivers: torch.Tensor,
                 round_weight: bool = False,
                 n_edges: Optional[int] = None,
                 long_rows: Optional[torch.Tensor] = None,
-                long_edges: int = 0) -> torch.Tensor:
+                long_edges: int = 0,
+                dot: Optional[torch.Tensor] = None,
+                need_sum: bool = True):
     """K1 (module docstring). ``n_edges``: the edges that ``row_ptr``
     spans, on the host (default: ``values``' rows, or ``senders``' in the
     gathered form), which sizes the layout; ``long_rows`` (int32, may be
     None): the rows above ``long_edges`` edges, a CTA each. Weights
-    come with ``senders`` only."""
+    come with ``senders`` only, ``dot`` with weights; with ``dot`` the
+    result is ``(out, dw)``, ``out`` None where ``need_sum`` is False."""
     if weight is not None and senders is None:
         raise ValueError("segment_sum: weights need the gathered form")
+    if dot is not None and weight is None:
+        raise ValueError("segment_sum: the dot needs the weighted form")
     if values.device.type == "cpu":
         e = int(row_ptr[-1])
-        if senders is not None:
-            if weight is not None and weight_at is None:
-                weight = weight[:e]
-            values = gathered_plain(
-                values, senders[:e], weight,
-                None if weight_at is None else weight_at[:e], round_weight)
-        return segment_sum_plain(values[:e], receivers[:e], n_out)
+        at = None if weight_at is None else weight_at[:e]
+        dw = None if dot is None else gathered_dot_plain(
+            values, senders[:e], dot, receivers[:e], weight, at)
+        out = None
+        if need_sum or dot is None:
+            if senders is not None:
+                if weight is not None and weight_at is None:
+                    weight = weight[:e]
+                values = gathered_plain(values, senders[:e], weight, at,
+                                        round_weight)
+            out = segment_sum_plain(values[:e], receivers[:e], n_out)
+        return out if dot is None else (out, dw)
     device = values.device
     if device.type != "cuda":
         raise ValueError(f"segment_sum: unsupported device {device}")
@@ -259,10 +325,10 @@ def segment_sum(values: torch.Tensor, receivers: torch.Tensor,
     elif values.shape[0] < n_edges:
         raise ValueError(f"segment_sum: {values.shape[0]} rows of values "
                          f"for {n_edges} edges")
+    c = values.shape[1]
     if weight is not None:
         if weight.dtype == torch.bfloat16:
             weight = weight.float()   # exact
-        c = values.shape[1]
         if (weight.dtype != torch.float32 or weight.device != device
                 or not weight.is_contiguous() or weight.ndim not in (1, 2)
                 or (weight.ndim == 2 and c % weight.shape[1])):
@@ -274,24 +340,53 @@ def segment_sum(values: torch.Tensor, receivers: torch.Tensor,
         elif weight.shape[0] < n_edges:
             raise ValueError(f"segment_sum: {weight.shape[0]} weights for "
                              f"{n_edges} edges")
+    if dot is not None and (dot.dtype != values.dtype
+                            or dot.device != device
+                            or not dot.is_contiguous()
+                            or dot.shape != (n_out, c)):
+        raise ValueError("segment_sum: dot must be a contiguous "
+                         f"{values.dtype} [{n_out}, {c}] tensor on {device}")
     if long_rows is not None:
         _int32_on(long_rows, device, "long_rows", 0)
     if values.numel() >= 2 ** 31:
         raise ValueError("segment_sum: values too large for int32 offsets")
-    out = torch.empty(n_out, values.shape[1], dtype=values.dtype,
-                      device=device)
-    if out.numel() == 0:
-        return out
+    out = (torch.empty(n_out, c, dtype=values.dtype, device=device)
+           if need_sum or dot is None else None)
+    sms = sm_count(device.index or 0)
+    lay = _args_layout(values, weight, out, dot, n_out, n_edges, sms)
+    dw = None
+    if dot is not None:
+        heads = 1 if weight.ndim == 1 else weight.shape[1]
+        # one slab writes every spanned edge's dot; parts of several slabs
+        # are summed below, so each starts from zero
+        dw = (torch.empty if lay.n_slabs == 1 else torch.zeros)(
+            lay.n_slabs, weight.shape[0], heads, dtype=torch.float32,
+            device=device)
+        dw[:, n_edges:] = 0.0
+    if n_out * c == 0:
+        return out if dot is None else (out, _dot_result(dw, weight))
     args = spmm_args(values, senders, weight, weight_at, round_weight,
                      row_ptr, long_rows, long_edges, out, n_edges,
-                     torch.cuda.current_stream(device).cuda_stream,
-                     sm_count(device.index or 0))
+                     torch.cuda.current_stream(device).cuda_stream, sms,
+                     dot, dw, lay)
     lib = load("spmm_kernel", _ENTRIES)
     with torch.cuda.device(device):
         err = lib.gnn_segment_sum(*args)
     check(lib, err, "segment_sum kernel launch")
     segment_sum.launches += 1
-    return out
+    if dot is None:
+        return out
+    segment_sum_dw.launches += 1
+    return out, _dot_result(dw, weight)
+
+
+def _dot_result(dw: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The dot mode's [n_slabs, rows, H] parts as the weight's shape, the
+    slabs' parts summed (a reduction in a fixed order)."""
+    return (dw[0] if dw.shape[0] == 1 else dw.sum(0)).reshape(weight.shape)
 
 
 segment_sum.launches = 0
+#: K1's launches that carry the dot (``segment_sum``'s ``dot``), counted
+#: beside ``segment_sum.launches``.
+segment_sum_dw = types.SimpleNamespace(launches=0)

@@ -3,8 +3,9 @@
 ``spmm(graph, x)`` computes ``out[r] = Σ_{(s,r) ∈ E} w_sr · x[s]``: on a
 ``Graph``, K1's gathered form (``aggregate_gathered``: the sender gather
 read inside the kernel, no [E, F] copy), whose backward is K1 again over
-the graph's sender-sorted transpose for d x, and the per-edge dot
-``g[recv] · x[send]`` for d w. On a ``HybridGraph``, the dense tiles'
+the graph's sender-sorted transpose for d x, the same launch forming the
+per-edge dot ``g[recv] · x[send]`` for d w. On a ``HybridGraph``, the
+dense tiles'
 ``bcsr_spmm`` (K3) plus the same COO SpMM over the remainder. On a
 partitioned graph (``parallel/``), this rank's rows: ``spmm_halo`` on a
 ``HaloGraph`` (the boundary exchange), ``spmm_sharded`` on a

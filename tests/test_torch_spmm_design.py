@@ -341,8 +341,39 @@ def _fold(lanes):
     return lanes[0]
 
 
+def _dot_model(rows, own, lay, f):
+    """K1's dot mode for one edge lane's edges, numpy float32: ``rows`` [k,
+    C] (each edge's gathered operand) against ``own`` [C] (the walked
+    row's vector); each lane's ``vec`` products summed in column order,
+    each head's run of vectors within a slab folded by the tree of the
+    shuffles (lane j takes lane j + off where j is a multiple of 2 off),
+    the slabs' parts added in slab order from 0. Returns [k, C / f]."""
+    k, c = rows.shape
+    vec, vpe = lay.vec, c // lay.vec
+    prods = rows.reshape(k, vpe, vec) * own.reshape(vpe, vec)
+    part = np.zeros((k, vpe), np.float32)
+    for i in range(vec):
+        part = part + prods[:, :, i]
+    hv = f // vec
+    dw = np.zeros((k, c // f), np.float32)
+    for y in range(lay.n_slabs):
+        s0, s1 = y * lay.per, min(y * lay.per + lay.per, vpe)
+        for h in range(c // f):
+            h0, h1 = max(h * hv, s0), min(h * hv + hv, s1)
+            if h1 <= h0:
+                continue
+            run = [part[:, v] for v in range(h0, h1)]
+            off = 1
+            while off < min(hv, lay.per):
+                for j in range(0, len(run) - off, 2 * off):
+                    run[j] = run[j] + run[j + off]
+                off <<= 1
+            dw[:, h] = dw[:, h] + run[0]
+    return dw
+
+
 def spmm_walk_model(row_ptr, terms, lay, long_rows, long_edges,
-                    vector_bytes):
+                    vector_bytes, dot=None):
     """K1's traversal in numpy float32 over the per-edge terms [E, C] (the
     values, or each rounded product): a row in ``long_rows`` on 8 warps of
     32 / lpe edge lanes each, any other on ``lay.row_warps`` warps of
@@ -354,12 +385,20 @@ def spmm_walk_model(row_ptr, terms, lay, long_rows, long_edges,
     edge-lanes-th edge in turn, each summing its edges in order from 0,
     each warp's lanes folded by the xor tree, the warps' partials added
     in warp order from 0 (a row on one warp: its fold alone). Asserts
-    that every spanned edge is read once; returns float32 [N, C]."""
+    that every spanned edge is read once; returns float32 [N, C].
+
+    ``dot`` = (gathered [E, C], own [N, C], f), float32: the dot mode as
+    well, each walked edge's dot per head of ``f`` columns by the edge
+    lane that takes it (``_dot_model``); returns (out, [E, C / f]) in the
+    walked order."""
     n = len(row_ptr) - 1
     c = terms.shape[1]
     long_rows = set(long_rows)
     seen = np.zeros(terms.shape[0], np.int64)
     out = np.zeros((n, c), np.float32)
+    if dot is not None:
+        gathered, own, f = dot
+        dots = np.zeros((terms.shape[0], c // f), np.float32)
     for row in range(n):
         lo, hi = int(row_ptr[row]), int(row_ptr[row + 1])
         if row in long_rows:
@@ -379,6 +418,9 @@ def spmm_walk_model(row_ptr, terms, lay, long_rows, long_edges,
             for eg in range(per_warp):
                 edges = np.arange(lo + w * per_warp + eg, hi, stride)
                 seen[edges] += 1
+                if dot is not None and len(edges):
+                    dots[edges] = _dot_model(gathered[edges], own[row], lay,
+                                             f)
                 acc = np.zeros(c, np.float32)
                 if len(edges):
                     acc = np.cumsum(terms[edges], axis=0,
@@ -394,7 +436,7 @@ def spmm_walk_model(row_ptr, terms, lay, long_rows, long_edges,
             out[row] = t
     np.testing.assert_array_equal(seen[:row_ptr[-1]], 1)
     assert not seen[row_ptr[-1]:].any()
-    return out
+    return out if dot is None else (out, dots)
 
 
 def _close_sums(got, want, abs_sum, dtype, what):
@@ -513,6 +555,145 @@ def test_model_reaches_every_row_group():
                     "a big row on its warp", "a CTA a row"}
 
 
+#: (heads, f) of the dot mode's cases: widths 8, 40 and 64 at 1 and 8
+#: heads, and 5 heads of 9 scalars, whose third head straddles the two
+#: slabs of 23 and 22 vectors.
+DOT_WIDTHS = [(1, 8), (8, 1), (1, 40), (8, 5), (1, 64), (8, 8), (5, 9)]
+
+
+def _dot_operands(g, heads, f, dtype, orient):
+    """The dot mode's operands on ``g``: over the transpose (``orient``
+    "transpose": the gathered form's backward, ``values`` the output's
+    gradient read at the receivers, ``own`` the forward's table at the
+    senders, the weights at the edge ids) or over ``row_ptr`` ("forward":
+    the table at the senders, ``own`` at the receivers). Returns (values,
+    own, w, rows, row_ptr, keyword arguments, long rows, the walked edge
+    ids, and the operands of JAX's ``spmm_weighted`` whose weight gradient
+    is the dot: (its x, its cotangent))."""
+    rng = np.random.default_rng(heads * 100 + f)
+    n, c = g.n_nodes, heads * f
+    values, own = (torch.from_numpy(rng.normal(size=(n, c)).astype(
+        np.float32)).to(dtype) for _ in range(2))
+    w = torch.from_numpy(rng.uniform(-1.0, 1.0, (g.n_edge_pad, heads))
+                         .astype(np.float32))
+    w = w[:, 0] if heads == 1 else w
+    if orient == "transpose":
+        t = g.transpose
+        kw = dict(senders=t.receivers, weight=w, weight_at=t.edge_ids)
+        walk = (t.senders, t.row_ptr, kw, t.long_rows, t.edge_ids.long())
+        jax_ops = (own, values)
+    else:
+        kw = dict(senders=g.senders, weight=w)
+        walk = (g.receivers, g.row_ptr, kw, g.long_rows,
+                torch.arange(g.n_edges))
+        jax_ops = (values, own)
+    return (values, own, w, *walk, jax_ops)
+
+
+@pytest.mark.parametrize("orient", ["transpose", "forward"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("heads, f", DOT_WIDTHS)
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_walk_dot_matches_plain_and_jax(name, heads, f, dtype, orient):
+    """The dot mode: the model's per-edge, per-head dot (in the kernel's
+    fold order) against the CPU wrapper (the plain per-edge dot) and
+    against JAX's gradient of ``spmm_weighted`` in its weights, whose
+    operands hold the same values in float32, within the summation-order
+    tolerance; the model's sum is the walk without the dot; the plain
+    version's dot alone equals it bit for bit, its padding rows are 0."""
+    g = _graph(name)
+    jg = _graphs(name)[0]
+    e, n, c = g.n_edges, g.n_nodes, heads * f
+    values, own, w, rows, ptr, kw, lr, ids, (jx, jcot) = _dot_operands(
+        g, heads, f, dtype, orient)
+    elt = values.element_size()
+    lay = spmm_layout(c, f, elt, e / n, n, MODEL_SMS.get(name, SMS))
+    idx = kw["senders"][:e].long()
+    at = kw.get("weight_at")
+    terms = k1.gathered_plain(values, kw["senders"][:e],
+                              w[:e] if at is None else w,
+                              None if at is None else at[:e]).float()
+    model, dots = spmm_walk_model(
+        ptr.numpy(), terms.numpy(), lay, lr.tolist(), g.long_edges,
+        lay.vec * elt, dot=(values.float().numpy()[idx.numpy()],
+                            own.float().numpy(), f))
+    model_dw = np.zeros((g.n_edge_pad, heads), np.float32)
+    model_dw[ids.numpy()] = dots
+    out, dw = k1.segment_sum(values, rows, ptr, n, n_edges=e, long_rows=lr,
+                             long_edges=g.long_edges, dot=own, **kw)
+    alone = k1.segment_sum(values, rows, ptr, n, n_edges=e, long_rows=lr,
+                           long_edges=g.long_edges, dot=own, need_sum=False,
+                           **kw)
+    assert alone[0] is None and torch.equal(alone[1], dw)
+    assert dw.dtype == torch.float32 and dw.shape == w.shape
+    assert not dw[e:].any()
+    dw = dw.reshape(-1, heads)
+    plain = k1.segment_sum(values, rows, ptr, n, n_edges=e, long_rows=lr,
+                           long_edges=g.long_edges, **kw)
+    torch.testing.assert_close(out, plain, rtol=0, atol=0)
+    abs_sum = k1.segment_sum_plain(terms.abs(), rows[:e], n).numpy()
+    _close_sums(torch.from_numpy(model).to(dtype).float().numpy(),
+                plain.float().numpy(), abs_sum, dtype, "sum")
+    x_at = own.float()[rows[:e].long()].reshape(e, heads, f)
+    dot_abs = (values.float()[idx].reshape(e, heads, f) * x_at).abs().sum(
+        -1).numpy()
+    # ids[i] is the edge that the walk takes i-th; the dots by edge id
+    by_id = np.zeros((g.n_edge_pad, heads))
+    by_id[ids.numpy()] = dot_abs
+    _close_sums(model_dw[:e], dw[:e].numpy(), by_id[:e], torch.float32,
+                "plain dot")
+    shape = (n, f) if heads == 1 else (n, heads, f)
+
+    def jloss(jw):
+        out = jops.spmm_weighted(
+            jg, jw, jnp.asarray(jx.float().numpy().reshape(shape)))
+        return jnp.sum(out * jnp.asarray(jcot.float().numpy().reshape(
+            shape)))
+
+    gw = np.asarray(jax.grad(jloss)(jnp.asarray(w.numpy())))
+    _close_sums(model_dw[:e], gw.reshape(-1, heads)[:e], by_id[:e],
+                torch.float32, "jax")
+    assert k1.segment_sum.launches == k1.segment_sum_dw.launches == 0
+
+
+def test_dot_walk_reaches_every_row_group():
+    """The dot mode's cases above reach every row group of the walk: rows
+    a warp (and a big row on its warp), a row a warp, warps a row, a CTA
+    a row; and heads folded over 1 to 16 vectors, and split over slabs."""
+    seen, runs = set(), set()
+    for name in GRAPHS:
+        g = _graph(name)
+        for orient in ("transpose", "forward"):
+            ptr = g.transpose.row_ptr if orient == "transpose" else g.row_ptr
+            lr = (g.transpose.long_rows if orient == "transpose"
+                  else g.long_rows)
+            deg = np.diff(ptr.numpy())
+            for heads, f in DOT_WIDTHS:
+                for elt in (4, 2):
+                    c = heads * f
+                    lay = spmm_layout(c, f, elt, g.n_edges / g.n_nodes,
+                                      g.n_nodes, MODEL_SMS.get(name, SMS))
+                    seen.add("rows a warp" if lay.group < 32 else
+                             "a row a warp" if lay.row_warps == 1 else
+                             "warps a row")
+                    step = lay.group // lay.lpe * k1.UNROLL
+                    if (lay.group < 32 and lay.row_warps == 1
+                            and lay.vec * elt <= 8
+                            and ((deg > 2 * step)
+                                 & (deg <= g.long_edges)).any()):
+                        seen.add("a big row on its warp")
+                    if lr.numel():
+                        seen.add("a CTA a row")
+                    runs.add(min(f // lay.vec, lay.per))
+                    if lay.n_slabs > 1 and lay.per % (f // lay.vec):
+                        seen.add("a head over two slabs")
+    assert seen == {"rows a warp", "a row a warp", "warps a row",
+                    "a big row on its warp", "a CTA a row",
+                    "a head over two slabs"}
+    assert {1, 2, 5, 8, 10, 16} <= runs
+
+
 # ------------------------------------- the plain version, bit for bit
 
 
@@ -548,9 +729,10 @@ def test_gathered_plain_is_the_callers_old_products(dtype):
 
 
 def test_launch_args_without_a_card():
-    """``spmm_args`` in each form: each argument converts to its declared
-    ctypes type; the layout, the head width, the long rows and the
-    weight's rounding are the host's."""
+    """``spmm_args`` in each form, and in the dot mode: each argument
+    converts to its declared ctypes type; the layout, the head width, the
+    long rows, the weight's rounding and the dot's operands are the
+    host's."""
     g = _graph("hub")
     t = g.transpose
     argtypes = k1._ENTRIES["gnn_segment_sum"]
@@ -583,6 +765,17 @@ def test_launch_args_without_a_card():
         assert args[18:21] == [lr.numel(), g.long_edges, int(rnd)]
         assert [a is None for a in args[1:4]] == [
             idx is None, w is None, w_at is None]
+        assert args[21:24] == [None, None, 0]
+    # the dot mode, the sum's store left out: x, dw and dw's rows
+    x = torch.zeros(g.n_nodes, 64)
+    dw = torch.zeros(1, g.n_edge_pad, 8)
+    args = k1.spmm_args(x, t.receivers, w8, t.edge_ids, False, t.row_ptr,
+                        t.long_rows, g.long_edges, None, g.n_edges, 0, SMS,
+                        x, dw)
+    for arg, kind in zip(args, argtypes):
+        kind(arg)
+    assert args[6] is None and args[21:24] == [x.data_ptr(), dw.data_ptr(),
+                                               g.n_edge_pad]
 
 
 def test_weights_need_the_gathered_form():
@@ -590,6 +783,10 @@ def test_weights_need_the_gathered_form():
     with pytest.raises(ValueError, match="gathered form"):
         k1.segment_sum(torch.zeros(g.n_edge_pad, 4), g.receivers, g.row_ptr,
                        g.n_nodes, weight=g.edge_weight)
+    with pytest.raises(ValueError, match="weighted form"):
+        k1.segment_sum(torch.zeros(g.n_nodes, 4), g.receivers, g.row_ptr,
+                       g.n_nodes, senders=g.senders,
+                       dot=torch.zeros(g.n_nodes, 4))
 
 
 # ------------------------------------------ parity with the JAX package
