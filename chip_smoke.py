@@ -42,7 +42,12 @@ Phases, each printing one JSON line:
                layers on an ogbn-arxiv-shaped graph (8 heads x 8 and 1 x
                40, float32 and bfloat16; 5 heads of 9, a head over two
                slabs), beside the launch without the dot and the PyTorch
-               path it replaced;
+               path it replaced; and as SAGE's mean (the weights
+               ``Graph.mean_weights``) at ogbn-products' size (126M
+               edges; 100, 256 and 47 columns, forward and transposed)
+               under the benchmark mix's Pareto(2) law, whose longest
+               rows take K1's CTA path, and under a uniform law, each
+               against a plain version in blocks of edges;
                K2 also on a graph with a hub row and in its gathered form on
                the remainders of SAGE's Pubmed hybrid (C 500 and 128), of
                the Cora GAT hybrid and of the 2M-edge community graph (the
@@ -817,7 +822,8 @@ def _k1_csr_library(table, rows_ptr, cols, w, n):
 
 def _k1_gathered_case(label, form, table, rows, row_ptr, n, senders,
                       weight=None, weight_at=None, round_weight=False,
-                      long_rows=None, long_edges=0, cold=False):
+                      long_rows=None, long_edges=0, cold=False,
+                      plain_weight=None, block=None):
     """K1's gathered form, ``out[r] = Σ_e round(w · table[senders_e])``,
     against its plain version (``gathered_plain`` then
     ``segment_sum_plain``) over the ``row_ptr[-1]`` spanned edges: the
@@ -833,7 +839,12 @@ def _k1_gathered_case(label, form, table, rows, row_ptr, n, senders,
     gathers and reduces with [E, H] weights. ``index_add_ms``: one
     ``index_add_`` of the products gathered beforehand (the per-edge
     form's library call on this function's terms). ``cold``: also time K1
-    with the L2 flushed before each call."""
+    with the L2 flushed before each call. ``plain_weight``: the plain
+    version's own [E] weights in walk order, found apart from the kernel's.
+    ``block``: the plain version gathers that many edges at a time, where
+    all of them at once would not fit ([E, C]; the weights then must not
+    be negative, so that its sum of |terms| is the plain version of
+    ``|table|``); no ``index_add_ms`` then, and fewer timed calls."""
     e = int(row_ptr[-1])
     c, elt = table.shape[1], table.element_size()
     heads = 1 if weight is None or weight.ndim == 1 else weight.shape[1]
@@ -843,16 +854,37 @@ def _k1_gathered_case(label, form, table, rows, row_ptr, n, senders,
     w_e = weight if weight is None or weight_at is not None else weight[:e]
     w_at = None if weight_at is None else weight_at[:e]
 
-    def plain():
-        return k1.segment_sum_plain(k1.gathered_plain(
-            table, senders[:e], w_e, w_at, round_weight), rows[:e], n)
+    def plain_terms(tab, lo, hi):
+        if plain_weight is not None:
+            w, at = plain_weight[lo:hi], None
+        elif w_at is not None:
+            w, at = w_e, w_at[lo:hi]
+        else:
+            w, at = None if w_e is None else w_e[lo:hi], None
+        return k1.gathered_plain(tab, senders[lo:hi], w, at, round_weight)
 
+    def blocked(tab):
+        out = torch.zeros(n, c, dtype=torch.float32, device=DEVICE)
+        for lo in range(0, e, block):
+            hi = min(lo + block, e)
+            out.index_add_(0, rows[lo:hi], plain_terms(tab, lo, hi).float())
+        return out.to(tab.dtype)
+
+    def plain():
+        if block is not None:
+            return blocked(table)
+        return k1.segment_sum_plain(plain_terms(table, 0, e), rows[:e], n)
+
+    timing = {} if block is None else dict(reps=3, batch=2)
     out = k1.segment_sum(table, rows, row_ptr, n, **kw)
     ref = plain()
     torch.cuda.synchronize()
     dtype = str(table.dtype).replace("torch.", "")
-    terms = k1.gathered_plain(table, senders[:e], w_e, w_at, round_weight)
-    abs_sum = k1.segment_sum_plain(terms.float().abs(), rows[:e], n)
+    if block is None:
+        terms = plain_terms(table, 0, e)
+        abs_sum = k1.segment_sum_plain(terms.float().abs(), rows[:e], n)
+    else:
+        terms, abs_sum = None, blocked(table.abs()).float()
     err, rtol, atol = _check(f"K1 {label} {form}", out, ref, dtype, abs_sum)
     named = int(senders[:e].unique().numel())
     n_bytes = (named * c * elt + e * 4 + (0 if weight is None
@@ -885,12 +917,15 @@ def _k1_gathered_case(label, form, table, rows, row_ptr, n, senders,
         library = lib
     else:
         library_err = float((lib.float() - ref.float()).abs().max())
-        library_ms = time_ms(call)
+        library_ms = time_ms(call, **timing)
+        del lib
     pre_out = torch.zeros(n, c, dtype=table.dtype, device=DEVICE)
     pre_rows = rows[:e]
 
     def kernel():
         return k1.segment_sum(table, rows, row_ptr, n, **kw)
+
+    del out, ref, abs_sum
 
     return dict(
         kernel="K1", form=form, shape=[int(table.shape[0]), c],
@@ -898,12 +933,12 @@ def _k1_gathered_case(label, form, table, rows, row_ptr, n, senders,
         graph=label, max_abs_err=err, rtol=rtol, atol=atol,
         layout=_k1_layout(table, c, heads, n, e),
         long_rows=0 if long_rows is None else int(long_rows.numel()),
-        kernel_ms=time_ms(kernel),
+        kernel_ms=time_ms(kernel, **timing),
         **({"kernel_cold_ms": _cold_ms(kernel)} if cold else {}),
-        plain_ms=time_ms(plain), library_ms=library_ms, library=library,
-        library_max_abs_err=library_err,
-        index_add_ms=time_ms(lambda: pre_out.index_add_(0, pre_rows,
-                                                        terms)),
+        plain_ms=time_ms(plain, **timing), library_ms=library_ms,
+        library=library, library_max_abs_err=library_err,
+        index_add_ms=None if terms is None else time_ms(
+            lambda: pre_out.index_add_(0, pre_rows, terms)),
         bound_ms=b_ms, bound_by=b_by, bytes=n_bytes)
 
 
@@ -953,6 +988,92 @@ def _arxiv_graph():
     keys = np.unique((lo * n + hi)[lo != hi])[:ARXIV_EDGES]
     return gcn_graph((keys // n).astype(np.int32),
                      (keys % n).astype(np.int32), n, device=DEVICE).warm()
+
+
+#: ogbn-products' nodes and undirected edges (``_products_graph``)
+PRODUCTS_NODES, PRODUCTS_EDGES = 2_449_029, 61_859_140
+#: the widths SAGE's mean takes on ogbn-products (3 x 256, 47 classes):
+#: the features, the hidden layers, the output layer's projection
+PRODUCTS_WIDTHS = (100, 256, 47)
+#: edges the plain version gathers at a time at ogbn-products' size
+PLAIN_BLOCK = 1 << 21
+
+
+def _products_graph(law: str):
+    """ogbn-products' counts from a fixed seed: ``PRODUCTS_EDGES``
+    distinct undirected pairs without self loops, one end by ``law``
+    (``pareto``: the degree sequence of Pareto(2)'s quantiles dealt out to
+    the nodes at random, the law of the benchmark's ``products-shuffled``
+    mix; ``uniform``: uniform over the nodes), the other end uniform, the
+    pairs drawn and sorted on the card; symmetrised with a self loop a node
+    (``build_graph``: 126,167,309 directed edges)."""
+    n, m = PRODUCTS_NODES, PRODUCTS_EDGES
+    gen = torch.Generator(device=DEVICE).manual_seed(24)
+    draw = m + m // 50
+    if law == "pareto":
+        q = (torch.arange(n, device=DEVICE, dtype=torch.float64) + 0.5) / n
+        w = q.pow(-0.5)[torch.randperm(n, generator=gen, device=DEVICE)]
+        deg = (w / w.sum() * draw).round().long()
+        send = torch.repeat_interleave(torch.arange(n, device=DEVICE), deg)
+    else:
+        send = torch.randint(0, n, (draw,), generator=gen, device=DEVICE)
+    recv = torch.randint(0, n, send.shape, generator=gen, device=DEVICE)
+    keep = send != recv
+    keys = torch.unique(torch.minimum(send, recv)[keep] * n
+                        + torch.maximum(send, recv)[keep])
+    del send, recv, keep
+    if keys.numel() < m:
+        raise AssertionError(f"{law}: {keys.numel()} distinct pairs < {m}")
+    keys = keys[torch.randperm(keys.numel(), generator=gen,
+                               device=DEVICE)[:m]]
+    loops = torch.arange(n, device=DEVICE)
+    s = torch.cat([keys // n, keys % n, loops])
+    r = torch.cat([keys % n, keys // n, loops])
+    del keys
+    order = torch.argsort(r * n + s)
+    s, r = s[order].int().cpu().numpy(), r[order].int().cpu().numpy()
+    del order
+    return build_graph(s, r, n, device=DEVICE).warm()
+
+
+def _k1_mean_cases(label, graph, gen) -> list[dict]:
+    """SAGE's mean as ``aggregate_mean`` runs it over ``graph``: K1's
+    gathered form with the weights ``Graph.mean_weights``, not rounded, at
+    ``PRODUCTS_WIDTHS`` in float32, forward and its d x over the
+    transpose, each against the plain version with ``1 / deg`` counted
+    apart (a bincount of the real edges' receivers, read at each edge's
+    receiver) in blocks of ``PLAIN_BLOCK`` edges. An epoch of
+    ``sage-products-coo`` takes the forward twice at each width (train and
+    val) and the transpose once at 256 and 47 (the features need no
+    gradient): ``epoch_k1_ms`` adds those eight."""
+    e, n, t = graph.n_edges, graph.n_nodes, graph.transpose
+    inv = torch.bincount(graph.receivers[:e].long(),
+                         minlength=n).float().reciprocal()
+    walks = {
+        "gather": (graph.receivers, graph.row_ptr, graph.senders, None,
+                   graph.long_rows, inv[graph.receivers[:e].long()]),
+        "transpose": (t.senders, t.row_ptr, t.receivers, t.edge_ids,
+                      t.long_rows, inv[t.receivers.long()])}
+    deg = graph.row_ptr[1:] - graph.row_ptr[:-1]
+    emit({"phase": "kernels", "graph": label, "nodes": n, "edges": e,
+          "max_row_edges": int(deg.max()), "long_edges": graph.long_edges,
+          "long_rows": int(graph.long_rows.numel()),
+          "long_sender_rows": int(t.long_rows.numel())})
+    cases, epoch_ms = [], 0.0
+    for c in PRODUCTS_WIDTHS:
+        table = torch.randn(n, c, device=DEVICE, generator=gen)
+        for form, (rows, ptr, send, at, longs, plain_w) in walks.items():
+            cases.append(_k1_gathered_case(
+                label, form, table, rows, ptr, n, send, graph.mean_weights,
+                at, False, longs, graph.long_edges, plain_weight=plain_w,
+                block=PLAIN_BLOCK))
+            emit({"phase": "kernels", **cases[-1]})
+            passes = 2 if form == "gather" else int(c != 100)
+            epoch_ms += passes * cases[-1]["kernel_ms"]
+        del table
+    emit({"phase": "kernels", "graph": label, "epoch_k1_ms": epoch_ms,
+          "what": "K1's eight mean passes of a sage-products-coo epoch"})
+    return cases
 
 
 def _k1_dot_case(label, graph, heads, f, dtype, gen):
@@ -1153,6 +1274,14 @@ def phase_kernels(cora, cora_hg, pubmed_hg, large) -> tuple[list, float]:
                                   dot_gen))
         emit({"phase": "kernels", **cases[-1]})
     del arxiv
+    # SAGE's mean as sage-products-coo runs it, on ogbn-products-shaped
+    # graphs under the mix's law (rows up to ~2.8e4 edges on K1's CTA path)
+    # and under a uniform one (no row past long_edges)
+    for law in ("pareto", "uniform"):
+        products = _products_graph(law)
+        cases += _k1_mean_cases(f"products_{law}", products, dot_gen)
+        del products
+        torch.cuda.empty_cache()
     # the same main-path case with row spans over the padded edge list
     # (the last row then holds all padding edges): what skipping them buys
     padded_ptr = torch.cat([g.row_ptr[:-1], g.row_ptr.new_tensor(
@@ -4438,14 +4567,17 @@ def main() -> None:
             ["--model", "gcn", "--layout", "hybrid", "--epochs",
              str(GCN_EPOCHS), "--dtype", dtype, "--device", DEVICE,
              "--quiet"], {"K3": (6, 2), "K1": (6, 2)}))
-    # SAGE mean per forward: 2 layers x (counts + sum) K3 and K1; the
-    # backward needs d input of sage_out only (sage0's input is the
-    # features): 1 K3 and 1 K1 (the remainder's transpose). Max per
-    # forward: 2 layers x (K7 + K2), backward in plain PyTorch.
+    # SAGE mean per forward: 2 layers x the sum, K3 and K1; the counts it
+    # divides by are summed once per graph (K3 and K1, in the warm-up
+    # epoch: one more of each with the final evaluation's 2); both layers
+    # narrow (500 -> 128 -> 3), so each sums its neighbour projection,
+    # which needs its d input in the backward: 2 K3 and 2 K1 (the
+    # remainder's transpose). Max per forward: 2 layers x (K7 + K2),
+    # backward in plain PyTorch.
     sage = ["--model", "graphsage", "--layout", "hybrid", "--epochs",
             str(SAGE_EPOCHS), "--device", DEVICE, "--quiet"]
     runs.append(_drive("graphsage_hybrid", sage,
-                       {"K3": (9, 4), "K1": (9, 4)}))
+                       {"K3": (6, 3), "K1": (6, 3)}))
     runs.append(_drive("graphsage_hybrid_max",
                        sage + ["--set", "aggregator=max"],
                        {"K7": (4, 2), "K2": (4, 2)}))

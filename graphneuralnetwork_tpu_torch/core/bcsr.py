@@ -270,6 +270,15 @@ class HybridGraph:
         counts = self.rem.row_ptr[1:] - self.rem.row_ptr[:-1]
         return torch.nonzero(counts > LONG_ROW_EDGES).flatten().int()
 
+    @functools.cached_property
+    def mean_counts(self) -> dict:
+        """SAGE-mean's divisors ``max(spmm(graph, 1), 1)`` [N, 1] by compute
+        dtype: filled by ``nn.conv.SAGEConv`` at its first mean over the
+        graph in a dtype (K3 and K1, no host sync, under
+        ``graph.mean_weights``) and kept with the graph, so that an epoch
+        does not sum the counts again in each aggregation."""
+        return {}
+
     def warm(self) -> "HybridGraph":
         """Build every cache of the graph and of its parts that is built at
         first use with a host sync (the tiles' ``slot_edges`` and masks,

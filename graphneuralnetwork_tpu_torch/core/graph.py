@@ -2,7 +2,9 @@
 
 Port of the JAX package's ``core/graph.py``. A graph of ``NATIVE_EDGES``
 edges or more is built and normalised on the host by the C++ engine
-(``sampling/native.py``), as in JAX, byte-exact with the numpy build. The
+(``sampling/native.py``), as in JAX, byte-exact with the numpy build; a
+GCN graph of ``CARD_BUILD_EDGES`` edges or more bound for a card is built
+on the card, with the same arrays (``gcn_graph_torch``). The
 on-device representation is the same padded, receiver-sorted COO edge list:
 
   * ``senders`` / ``receivers``: int32[E_pad], sorted by receiver;
@@ -63,6 +65,13 @@ LONG_ROW_MEANS = 4
 #: Graphs of this many edges or more are built and normalised by the C++
 #: engine (JAX's threshold).
 NATIVE_EDGES = 16384
+#: ``gcn_graph`` builds a graph of this many given edges or more on the card
+#: it is bound for: the host's sorts take about a minute at ogbn-products'
+#: 62M pairs, the card's a second. Below it the host build takes a few
+#: seconds at most, and the card's caching allocator holds the graph's
+#: arrays alone, not beside the freed scratch of a build several times the
+#: graph's size.
+CARD_BUILD_EDGES = 1 << 24
 
 
 def _round_up(x: int, m: int) -> int:
@@ -152,6 +161,21 @@ class Graph:
             senders=send[order].int(),
             receivers=self.receivers[:e][order].contiguous(),
             long_rows=torch.nonzero(counts > self.long_edges).flatten().int())
+
+    @functools.cached_property
+    def mean_weights(self) -> torch.Tensor:
+        """float32[E_pad]: ``1 / deg(r)`` on each real edge ``s -> r``, the
+        in-degree counting the real edges, and 0 on the padding: K1's
+        gathered form with these weights is the mean over each receiver's
+        edges (SAGE's ``mean``). Built on the device at the first mean
+        aggregation, with no host sync (so that an eager warm-up epoch
+        builds it before a capture), and kept with the graph; ``warm()``
+        leaves it out, as most graphs never take a mean."""
+        with span("graph.mean_weights"):
+            deg = (self.row_ptr[1:] - self.row_ptr[:-1]).clamp_min(1)
+            w = deg.float().reciprocal()[self.receivers.long()]
+            w[self.n_edges:] = 0.0
+            return w
 
     @span("graph.warm")
     def warm(self) -> "Graph":
@@ -352,12 +376,66 @@ def dense_adj(graph: Graph) -> torch.Tensor:
 def gcn_graph(senders: np.ndarray, receivers: np.ndarray, n_nodes: int,
               *, device: str | torch.device = "cuda") -> Graph:
     """Symmetrise, add self loops, sym-normalise: the GCN adjacency, on
-    ``device`` (as ``build_graph``)."""
+    ``device`` (as ``build_graph``). For a card, from ``CARD_BUILD_EDGES``
+    given edges, the steps run on it (``gcn_graph_torch``)."""
+    device = resolve_device(device)
+    if device.type == "cuda" and len(senders) >= CARD_BUILD_EDGES:
+        return gcn_graph_torch(senders, receivers, n_nodes, device)
     s, r = symmetrize(np.asarray(senders, np.int32),
                       np.asarray(receivers, np.int32))
     s, r = add_self_loops(s, r, n_nodes)
     w = sym_normalize_weights(s, r, n_nodes)
     return build_graph(s, r, n_nodes, w, device=device)
+
+
+def gcn_graph_torch(senders: np.ndarray, receivers: np.ndarray,
+                    n_nodes: int, device: torch.device) -> Graph:
+    """``gcn_graph``'s host steps (``symmetrize``, ``add_self_loops``,
+    ``sym_normalize_weights``, ``build_graph``) in torch on ``device``, with
+    the same arrays bit for bit: the distinct pairs in (sender, receiver)
+    order, the loops after them, the weights in float64 rounded once to
+    float32, the stable receiver sort and the padding."""
+    s = torch.from_numpy(np.asarray(senders, np.int32).ravel()).to(device)
+    r = torch.from_numpy(np.asarray(receivers, np.int32).ravel()).to(device)
+    s, r = torch.cat([s, r]).long(), torch.cat([r, s]).long()
+    if s.numel():
+        lo, hi = (int(v) for v in torch.stack(
+            [torch.minimum(s.min(), r.min()),
+             torch.maximum(s.max(), r.max())]).cpu())
+        if lo < 0 or hi >= n_nodes:
+            raise IndexError(f"an edge index lies outside [0, {n_nodes})")
+        m = hi + 1
+        key = torch.unique(s * m + r)
+        s, r = key // m, key % m
+        keep = s != r
+        s, r = s[keep], r[keep]
+    loops = torch.arange(n_nodes, device=device)
+    s, r = torch.cat([s, loops]), torch.cat([r, loops])
+
+    counts = torch.bincount(r, minlength=n_nodes)
+    deg = counts.double()
+    d_inv_sqrt = torch.where(deg > 0,
+                             1.0 / torch.sqrt(deg.clamp_min(1e-12)), 0.0)
+    w = (d_inv_sqrt[s] * d_inv_sqrt[r]).float()
+    order = torch.sort(r, stable=True).indices
+    s, r, w = s[order], r[order], w[order]
+
+    n_edges = int(s.shape[0])
+    e_pad = max(_round_up(max(n_edges, 1), EDGE_BLOCK), EDGE_BLOCK)
+    pad = n_nodes - 1 if n_nodes > 0 else 0
+    s_pad = torch.full((e_pad,), pad, dtype=torch.int32, device=device)
+    r_pad = torch.full((e_pad,), pad, dtype=torch.int32, device=device)
+    w_pad = torch.zeros(e_pad, dtype=torch.float32, device=device)
+    s_pad[:n_edges], r_pad[:n_edges], w_pad[:n_edges] = s, r, w
+    lo, cnt, max_chunks = compute_chunk_spans(r_pad.cpu().numpy(), n_nodes)
+    return Graph(
+        senders=s_pad, receivers=r_pad, edge_weight=w_pad,
+        chunk_off=torch.from_numpy(lo).to(device),
+        chunk_cnt=torch.from_numpy(cnt).to(device),
+        row_ptr=torch.cat([counts.new_zeros(1), counts.cumsum(0)]).int(),
+        n_nodes=int(n_nodes), n_edges=n_edges,
+        n_node_pad=max(_round_up(max(n_nodes, 1), NODE_BLOCK), NODE_BLOCK),
+        max_chunks=max_chunks)
 
 
 @span("graph.build")

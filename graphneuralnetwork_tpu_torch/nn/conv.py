@@ -25,8 +25,8 @@ from torch.nn import functional as F
 
 from ..core.bcsr import HybridGraph
 from ..core.graph import Graph
-from ..ops import edge_softmax, segment_max, segment_mean
-from ..ops.aggregate import gather_receivers, gather_senders
+from ..ops import edge_softmax, segment_max
+from ..ops.aggregate import aggregate_mean, gather_receivers, gather_senders
 from ..ops.bcsr_attention import gat_tiled_attend, hybrid_segment_max
 from ..ops.spmm import spmm, spmm_weighted
 from ..utils.profiling import span
@@ -216,19 +216,32 @@ class SAGEConv(nn.Module):
     (``combine="concat"``, twice ``features`` wide).
 
     On a ``HybridGraph`` ``sum`` and ``mean`` ride ``spmm`` (K3 and K1;
-    ``mean`` divides by ``spmm(graph, ones)``, at least 1) and ``max``
+    ``mean`` divides by ``spmm(graph, ones)``, at least 1, summed once per
+    graph and dtype and kept in ``HybridGraph.mean_counts``) and ``max``
     ``hybrid_segment_max`` (K7 and K2). On a partitioned graph ``sum`` and
     ``mean`` ride the same dispatching ``spmm`` (the edge weights, 1 on
     the real edges of an unweighted partition, count), ``max``
     ``segment_max_halo`` on a ``HaloGraph`` (the all-gather partition has
-    none, as in JAX). On a ``Graph`` they are the
-    unweighted segment mean and max over the real edges and the weighted
-    sum ``spmm`` (K1's gathered form).
+    none, as in JAX). On a ``Graph`` ``mean`` is K1's gathered form with
+    the weights ``1 / deg(r)`` (``aggregate_mean``), ``sum`` the weighted
+    sum ``spmm`` (the same form with the graph's edge weights), both with
+    no [E, C] tensor, and ``max`` the segment max of ``x[senders]`` over
+    the real edges. ``mean`` is linear, so on every layout, where the
+    output is narrower than the input, it aggregates ``neighbor``'s
+    projection, ``agg(x · W) + b``: the same result over fewer columns.
+    ``sum`` is linear too but aggregates ``x`` first, as the flax module
+    does: without the mean's ``1 / deg`` its sums grow with the degree,
+    and the weight gradient's float32 rounding in the other order parts
+    from JAX's by more than 1e-5 of its entries. ``max`` is not linear.
+
+    ``use_bias``: True puts a bias on both linears (the flax module's),
+    ``"neighbor"`` on the neighbour linear only (PyG's ``SAGEConv``, whose
+    ``lin_l`` alone has one).
     """
 
     def __init__(self, in_features: int, features: int,
                  aggregator: str = "mean", combine: str = "sum",
-                 use_bias: bool = False,
+                 use_bias: bool | str = False,
                  dtype: Optional[torch.dtype] = None,
                  activation: Optional[Callable] = None):
         super().__init__()
@@ -236,20 +249,40 @@ class SAGEConv(nn.Module):
             raise ValueError(f"unknown aggregator {aggregator!r}")
         if combine not in ("sum", "concat"):
             raise ValueError(f"unknown combine {combine!r}")
+        if use_bias not in (False, True, "neighbor"):
+            raise ValueError(f"unknown use_bias {use_bias!r}")
         self.aggregator = aggregator
         self.combine = combine
         self.dtype = dtype
         self.activation = activation
         # the flax scope names: ``sage0/neighbor/kernel`` maps to
         # ``sage0.neighbor.weight``
-        self.neighbor = nn.Linear(in_features, features, bias=use_bias)
-        self.self = nn.Linear(in_features, features, bias=use_bias)
+        self.neighbor = nn.Linear(in_features, features,
+                                  bias=bool(use_bias))
+        self.self = nn.Linear(in_features, features,
+                              bias=bool(use_bias) and use_bias != "neighbor")
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         for lin in (self.neighbor, self.self):
             lecun_normal_(lin.weight, lin.in_features, generator)
             if lin.bias is not None:
                 nn.init.zeros_(lin.bias)
+
+    @staticmethod
+    def _counts(graph, x: torch.Tensor) -> torch.Tensor:
+        """``max(spmm(graph, 1), 1)`` [N, 1] in ``x``'s type: the mean's
+        divisor, kept per dtype on a ``HybridGraph``."""
+        def count():
+            ones = torch.ones(x.shape[0], 1, dtype=x.dtype, device=x.device)
+            return torch.clamp_min(spmm(graph, ones), 1.0)
+
+        if not hasattr(graph, "bcsr"):
+            return count()
+        cache = graph.mean_counts
+        if x.dtype not in cache:
+            with torch.no_grad(), span("graph.mean_weights"):
+                cache[x.dtype] = count()
+        return cache[x.dtype]
 
     def _aggregate(self, graph: Graph | HybridGraph,
                    x: torch.Tensor) -> torch.Tensor:
@@ -258,10 +291,7 @@ class SAGEConv(nn.Module):
             if self.aggregator == "sum":
                 return spmm(graph, x)
             if self.aggregator == "mean":
-                ones = torch.ones(x.shape[0], 1, dtype=x.dtype,
-                                  device=x.device)
-                counts = torch.clamp_min(spmm(graph, ones), 1.0)
-                return spmm(graph, x) / counts
+                return spmm(graph, x) / self._counts(graph, x)
             if hasattr(graph, "bcsr"):
                 return hybrid_segment_max(graph, x)
             if hasattr(graph, "halo_size"):
@@ -272,11 +302,9 @@ class SAGEConv(nn.Module):
                 "partitioned graph type")
         if self.aggregator == "sum":
             return spmm(graph, x)
-        msgs = x[graph.senders]
         if self.aggregator == "mean":
-            return segment_mean(msgs, graph.receivers, graph.n_nodes,
-                                mask=graph.edge_mask)
-        return segment_max(msgs, graph.receivers, graph.n_nodes,
+            return aggregate_mean(graph, x)
+        return segment_max(x[graph.senders], graph.receivers, graph.n_nodes,
                            mask=graph.edge_mask)
 
     @staticmethod
@@ -284,12 +312,22 @@ class SAGEConv(nn.Module):
         bias = None if lin.bias is None else lin.bias.to(x.dtype)
         return F.linear(x, lin.weight.to(x.dtype), bias)
 
+    def _neighbor(self, graph: Graph | HybridGraph,
+                  x: torch.Tensor) -> torch.Tensor:
+        """``neighbor(agg(x))``; for the mean into fewer columns,
+        ``agg(x · W) + b``."""
+        lin = self.neighbor
+        if self.aggregator != "mean" or lin.out_features >= lin.in_features:
+            return self._dense(lin, self._aggregate(graph, x))
+        agg = self._aggregate(graph, F.linear(x, lin.weight.to(x.dtype)))
+        return agg if lin.bias is None else agg + lin.bias.to(agg.dtype)
+
     @span("conv.SAGEConv")
     def forward(self, graph: Graph | HybridGraph,
                 x: torch.Tensor) -> torch.Tensor:
         if self.dtype is not None:
             x = x.to(self.dtype)
-        neigh = self._dense(self.neighbor, self._aggregate(graph, x))
+        neigh = self._neighbor(graph, x)
         self_h = self._dense(self.self, x)
         out = (neigh + self_h if self.combine == "sum"
                else torch.cat([self_h, neigh], dim=-1))

@@ -85,21 +85,29 @@ class DenseGAT(GAT):
 
 class GraphSAGE(nn.Module):
     """Full-graph GraphSAGE: ``SAGEConv`` layers of ``hidden_dims`` with
-    ReLU (``sage0``, ``sage1``, ...), then ``sage_out`` without one. No
-    dropout; ``generator`` is accepted for the training loop's call."""
+    ReLU (``sage0``, ``sage1``, ...), each followed in training by dropout
+    at ``dropout`` (drawn from ``generator``, in layer order), then
+    ``sage_out`` without either. ``neighbor_bias`` puts a bias on each
+    layer's neighbour linear (PyG's ``SAGEConv``, as OGB's full-batch
+    GraphSAGE has it); the defaults, no dropout and no bias, are the flax
+    module's."""
 
     def __init__(self, in_features: int,
                  hidden_dims: Sequence[int] = (128,), num_classes: int = 3,
                  aggregator: str = "mean",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 dropout: float = 0.0, neighbor_bias: bool = False):
         super().__init__()
+        self.dropout = dropout
+        bias = "neighbor" if neighbor_bias else False
         dims = [in_features, *hidden_dims]
         for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
             self.add_module(f"sage{i}", SAGEConv(
-                d_in, d_out, aggregator=aggregator, dtype=dtype,
-                activation=F.relu))
+                d_in, d_out, aggregator=aggregator, use_bias=bias,
+                dtype=dtype, activation=F.relu))
         self.sage_out = SAGEConv(dims[-1], num_classes,
-                                 aggregator=aggregator, dtype=dtype)
+                                 aggregator=aggregator, use_bias=bias,
+                                 dtype=dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         for layer in self.children():
@@ -110,4 +118,6 @@ class GraphSAGE(nn.Module):
         h = x
         for layer in self.children():
             h = layer(graph, h)
+            if layer is not self.sage_out and self.training:
+                h = dropout(h, self.dropout, generator)
         return h.float()

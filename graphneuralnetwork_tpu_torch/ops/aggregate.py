@@ -19,7 +19,8 @@ and each edge's dot goes to ``d w`` at its id. That replaces no TPU kernel
 [E, C] float32 gathers, their product and its reduction: 8.8 of a 24.5 ms
 GAT epoch at ogbn-arxiv's shape on an H100, against 0.3 ms in the walk.
 Its bound is bytes: the walk's own, plus each row's ``x`` read once and
-``d w`` written once.
+``d w`` written once. ``aggregate_mean`` is the gathered form with the
+weights ``1 / deg(r)`` (SAGE's mean over a COO graph).
 
 ``gather_receivers`` and ``gather_senders`` index a node table by the
 graph's receivers or senders ([E_pad, ...]); their backward sums the
@@ -37,7 +38,7 @@ import torch
 
 from ..core.graph import Graph
 from ..utils.profiling import span
-from .cuda.spmm_kernel import segment_sum
+from .cuda.spmm_kernel import segment_sum, segment_sum_mean
 
 
 class _Aggregate(torch.autograd.Function):
@@ -110,14 +111,14 @@ class _GatherSum(torch.autograd.Function):
 
     @staticmethod
     @span("op.gather_sum")
-    def forward(ctx, x, w, graph, round_weight):
+    def forward(ctx, x, w, graph, round_weight, tally):
         ctx.save_for_backward(x, w)
-        ctx.graph, ctx.round_weight = graph, round_weight
+        ctx.graph, ctx.round_weight, ctx.tally = graph, round_weight, tally
         return segment_sum(x, graph.receivers, graph.row_ptr, graph.n_nodes,
                            senders=graph.senders, weight=w,
                            round_weight=round_weight, n_edges=graph.n_edges,
                            long_rows=graph.long_rows,
-                           long_edges=graph.long_edges)
+                           long_edges=graph.long_edges, tally=tally)
 
     @staticmethod
     @span("op.gather_sum.backward")
@@ -137,11 +138,11 @@ class _GatherSum(torch.autograd.Function):
                                   long_rows=t.long_rows,
                                   long_edges=graph.long_edges,
                                   dot=x if need_dw else None,
-                                  need_sum=need_dx)
+                                  need_sum=need_dx, tally=ctx.tally)
             dx, dw = res if need_dw else (res, None)
             if need_dw:
                 dw = dw.to(w.dtype)
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
 def aggregate_gathered(graph: Graph, x: torch.Tensor, weight: torch.Tensor,
@@ -151,7 +152,19 @@ def aggregate_gathered(graph: Graph, x: torch.Tensor, weight: torch.Tensor,
     [E_pad] or [E_pad, H] (head ``h`` scales columns ``[h C/H, (h+1)
     C/H)``), the weight rounded to ``T`` first where ``round_weight`` is
     set; K1's gathered form, differentiable in ``x`` and ``weight``."""
-    return _GatherSum.apply(x.contiguous(), weight, graph, round_weight)
+    return _GatherSum.apply(x.contiguous(), weight, graph, round_weight,
+                            None)
+
+
+def aggregate_mean(graph: Graph, x: torch.Tensor) -> torch.Tensor:
+    """``out[r]`` = the mean of ``x[s]`` over the real edges ``s -> r`` (0
+    on a row without one) [N, C]: K1's gathered form with the per-edge
+    weights ``Graph.mean_weights`` (``1 / deg(r)``), each product rounded
+    to ``x``'s type before the float32 sum; the backward is K1 over the
+    transpose with the same weights. No [E, C] tensor is formed either
+    way. Its launches also count as ``K1_mean``."""
+    return _GatherSum.apply(x.contiguous(), graph.mean_weights, graph, False,
+                            segment_sum_mean)
 
 
 class _Walk(NamedTuple):

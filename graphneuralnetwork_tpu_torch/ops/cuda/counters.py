@@ -1,7 +1,8 @@
 """The launch counter of every kernel wrapper, by the TPU kernel it replaces
 (K1-K10; ``row_sum_stream`` and ``row_sum_ring`` for ``reduce_auto`` and
-``reduce_manual`` of ``tools/bench_dma.py``), and ``K1_dw``, K1's launches
-that carry the dot mode (counted in ``K1`` too). A wrapper adds one to its
+``reduce_manual`` of ``tools/bench_dma.py``), ``K1_dw``, K1's launches
+that carry the dot mode, and ``K1_mean``, K1's launches that carry SAGE's
+mean (both counted in ``K1`` too). A wrapper adds one to its
 ``launches`` where it launches its kernel and nowhere else; the plain
 versions count nothing.
 
@@ -24,13 +25,14 @@ from .neighbor_max_kernel import neighbor_max
 from .rem_attend_kernel import rem_attend
 from .row_sum_kernel import row_sum_ring, row_sum_stream
 from .segment_max_kernel import segment_max
-from .spmm_kernel import segment_sum, segment_sum_dw
+from .spmm_kernel import segment_sum, segment_sum_dw, segment_sum_mean
 
 COUNTERS = {"K1": segment_sum, "K2": segment_max, "K3": bcsr_spmm,
             "K4": attend_online, "K5": attend_bwd_a, "K6": attend_bwd_b,
             "K7": neighbor_max, "K8": rem_attend, "K9": tile_parts,
             "K10": attend_fused, "row_sum_stream": row_sum_stream,
-            "row_sum_ring": row_sum_ring, "K1_dw": segment_sum_dw}
+            "row_sum_ring": row_sum_ring, "K1_dw": segment_sum_dw,
+            "K1_mean": segment_sum_mean}
 
 
 def reset_launches() -> None:

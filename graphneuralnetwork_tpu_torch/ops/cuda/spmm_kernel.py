@@ -43,7 +43,8 @@ the row count and how many fill the card) and takes the rows that a CTA of
 their own takes from ``long_rows`` (``Graph.long_rows`` or the
 transpose's); ``spmm_args`` builds the launch arguments.
 ``segment_sum.launches`` counts kernel launches, ``segment_sum_dw.launches``
-those of them that carry the dot.
+those of them that carry the dot, ``segment_sum_mean.launches`` those that
+carry SAGE's mean.
 """
 
 from __future__ import annotations
@@ -275,13 +276,16 @@ def segment_sum(values: torch.Tensor, receivers: torch.Tensor,
                 long_rows: Optional[torch.Tensor] = None,
                 long_edges: int = 0,
                 dot: Optional[torch.Tensor] = None,
-                need_sum: bool = True):
+                need_sum: bool = True,
+                tally: Optional[types.SimpleNamespace] = None):
     """K1 (module docstring). ``n_edges``: the edges that ``row_ptr``
     spans, on the host (default: ``values``' rows, or ``senders``' in the
     gathered form), which sizes the layout; ``long_rows`` (int32, may be
     None): the rows above ``long_edges`` edges, a CTA each. Weights
     come with ``senders`` only, ``dot`` with weights; with ``dot`` the
-    result is ``(out, dw)``, ``out`` None where ``need_sum`` is False."""
+    result is ``(out, dw)``, ``out`` None where ``need_sum`` is False.
+    ``tally``: a further counter that the launch adds one to (e.g.
+    ``segment_sum_mean``)."""
     if weight is not None and senders is None:
         raise ValueError("segment_sum: weights need the gathered form")
     if dot is not None and weight is None:
@@ -374,6 +378,8 @@ def segment_sum(values: torch.Tensor, receivers: torch.Tensor,
         err = lib.gnn_segment_sum(*args)
     check(lib, err, "segment_sum kernel launch")
     segment_sum.launches += 1
+    if tally is not None:
+        tally.launches += 1
     if dot is None:
         return out
     segment_sum_dw.launches += 1
@@ -390,3 +396,6 @@ segment_sum.launches = 0
 #: K1's launches that carry the dot (``segment_sum``'s ``dot``), counted
 #: beside ``segment_sum.launches``.
 segment_sum_dw = types.SimpleNamespace(launches=0)
+#: K1's launches that carry SAGE's mean (``ops/aggregate.py:aggregate_mean``,
+#: forward and backward), counted beside ``segment_sum.launches``.
+segment_sum_mean = types.SimpleNamespace(launches=0)

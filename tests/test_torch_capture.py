@@ -15,6 +15,7 @@ scatter-adds sum in an order that changes from run to run).
 """
 
 import copy
+import dataclasses
 import functools
 
 import numpy as np
@@ -203,10 +204,14 @@ def test_block_matches_eager_under_stub_capture(case, graphs, counted,
     replays, against ``run_epochs`` from the same state: the same rows,
     parameters, optimizer steps and launch totals."""
     graph, make, spec, kernels = CASES[case]
-    data = _data(graphs[graph])
+    # each side on its own copy of the graph, whose first-use caches start
+    # empty: what an epoch builds once per graph (SAGE-mean's counts, a K3
+    # and a K1 launch) is built, and counted, once on each side
+    data, data_e = (_data(dataclasses.replace(graphs[graph]))
+                    for _ in range(2))
     monkeypatch.setattr(scan_loop, "EpochGraph", StubGraph)
     captured = create_train_state(make(), data, 0, spec)
-    eager = create_train_state(make(), data, 0, spec)
+    eager = create_train_state(make(), data_e, 0, spec)
     if case == "sage_mean":      # the capturable schedule, as on CUDA
         for st in (captured, eager):
             st.scheduler = WarmupPolyTable(spec.total_steps,
@@ -224,7 +229,8 @@ def test_block_matches_eager_under_stub_capture(case, graphs, counted,
 
     counters.reset_launches()
     evaluate = make_eval_fn(eager.model)
-    ref = [scan_loop.run_epochs(eager, data, evaluate, K) for _ in range(2)]
+    ref = [scan_loop.run_epochs(eager, data_e, evaluate, K)
+           for _ in range(2)]
     assert counters.read_launches() == launches
     for got, want in zip(rows, ref):
         assert got.shape == (K, 4) and got.dtype == np.float32

@@ -65,6 +65,49 @@ def test_gcn_graph_arrays_equal(which, cora_arrays):
     assert int(tg.row_ptr[-1]) == tg.n_edges
 
 
+def _with_loops_and_twins(n=300, e=1500, seed=3):
+    """A random graph with self loops, both directions of some pairs,
+    repeated pairs and isolated nodes."""
+    s, r, _ = _random_graph(n - 10, e, seed)
+    s = np.concatenate([s, [4, 7, 7, 0], r[:50]]).astype(np.int32)
+    r = np.concatenate([r, [4, 8, 8, 0], s[:50]]).astype(np.int32)
+    return s, r, n
+
+
+@pytest.mark.parametrize("which", ["cora", "random", "loops", "native",
+                                   "empty"])
+def test_gcn_graph_torch_equals_host_build(which, cora_arrays):
+    """The build a card takes gives the host build's arrays, bit for bit:
+    below and above ``NATIVE_EDGES`` (the numpy and the C++ engine's
+    build), with loops, twins and isolated nodes, and with no edges."""
+    if which == "cora":
+        feats, _, s, r = cora_arrays
+        n = feats.shape[0]
+    elif which == "random":
+        s, r, n = _random_graph()
+    elif which == "loops":
+        s, r, n = _with_loops_and_twins()
+    elif which == "native":
+        s, r, n = _with_loops_and_twins(n=3000, e=3 * tgraph.NATIVE_EDGES)
+    else:
+        s, r, n = np.zeros(0, np.int32), np.zeros(0, np.int32), 5
+    host = tgraph.gcn_graph(s, r, n, device="cpu")
+    dev = tgraph.gcn_graph_torch(s, r, n, torch.device("cpu"))
+    for name in LAYOUT_ARRAYS + ("row_ptr",):
+        a, b = getattr(host, name), getattr(dev, name)
+        assert a.dtype == b.dtype, name
+        assert torch.equal(a, b), name
+    for name in ("n_nodes", "n_edges", "n_node_pad", "max_chunks"):
+        assert getattr(host, name) == getattr(dev, name), name
+
+
+def test_gcn_graph_torch_rejects_an_index_outside():
+    with pytest.raises(IndexError):
+        tgraph.gcn_graph_torch(np.array([0, 5], np.int32),
+                               np.array([1, 2], np.int32), 5,
+                               torch.device("cpu"))
+
+
 def test_build_graph_unweighted_and_empty_rows():
     """Nodes without incoming edges give empty row_ptr segments."""
     s = np.array([0, 1, 2, 2], np.int32)
