@@ -275,7 +275,7 @@ from graphneuralnetwork_tpu_torch.nn.gtn_sparse import (SparseGTN,
 from graphneuralnetwork_tpu_torch.nn.sage import SampledGraphSAGE
 from graphneuralnetwork_tpu_torch.nn import conv as nn_conv
 from graphneuralnetwork_tpu_torch.nn import models as nn_models
-from graphneuralnetwork_tpu_torch.ops import bcsr_attention
+from graphneuralnetwork_tpu_torch.ops import aggregate, bcsr_attention, segment
 from graphneuralnetwork_tpu_torch.ops.cuda import attend_bwd_kernel as k56
 from graphneuralnetwork_tpu_torch.ops.cuda import attend_online_kernel as k4
 from graphneuralnetwork_tpu_torch.ops.cuda import attend_parts_kernel as k910
@@ -1163,6 +1163,106 @@ def _k1_dot_case(label, graph, heads, f, dtype, gen):
         bound_by=b_by, bytes=n_bytes)
 
 
+def _k2_softmax_cases(label, graph, heads, gen) -> list[dict]:
+    """K2's softmax modes as GAT-COO's layer runs them over ``graph`` at
+    ``heads`` heads: α from the per-node logits (form ``softmax``), and
+    its backward, ``ds`` and ``d f_dst`` (form ``softmax_bwd``), each
+    held against its plain version (``gat_softmax_plain``,
+    ``gat_softmax_backward_plain``) within ``TOL["float32"]`` of each
+    value's sum of |terms|, the padding edges 0. Times each mode
+    (``kernel_ms``; the backward also with K1's ``d f_src`` over the
+    transpose, ``with_k1_ms``), its plain version and the PyTorch chain
+    it replaced (``replaced_ms``: the gathers, ``leaky_relu`` and
+    ``edge_softmax``, forward; their autograd backward from ``d α``).
+    The bounds count each input once and each output once: forward the
+    senders, the spans, the f_src rows the edges name, f_dst and α
+    written, with one exp an edge and head; backward α and ``d α`` read,
+    the senders, spans and both tables, ``ds`` and ``d f_dst`` written."""
+    e, n = graph.n_edges, graph.n_nodes
+    f_src = torch.randn(n, heads, generator=gen, device=DEVICE)
+    f_dst = torch.randn(n, heads, generator=gen, device=DEVICE)
+    d_alpha = torch.randn(graph.n_edge_pad, heads, generator=gen,
+                          device=DEVICE)
+    slope = 0.2
+
+    def chain(fs, fd):
+        scores = (aggregate.gather_senders(graph, fs)
+                  + aggregate.gather_receivers(graph, fd))
+        return segment.edge_softmax(graph, torch.nn.functional.leaky_relu(
+            scores, slope))
+
+    alpha = k2.gat_softmax(graph, f_src, f_dst, slope)
+    ref = k2.gat_softmax_plain(graph, f_src, f_dst, slope)
+    ds, d_dst = k2.gat_softmax_backward(graph, alpha, d_alpha, f_src, f_dst,
+                                        slope)
+    ref_ds, ref_dd = k2.gat_softmax_backward_plain(graph, alpha, d_alpha,
+                                                   f_src, f_dst, slope)
+    torch.cuda.synchronize()
+    name = f"K2 {label} softmax H={heads}"
+    if alpha[e:].any() or ds[e:].any():
+        raise AssertionError(f"{name}: the padding edges are not 0")
+    recv = graph.receivers[:e].long()
+    a, g = alpha[:e], d_alpha[:e].abs()
+    c_abs = torch.zeros(n, heads, device=DEVICE).index_add_(0, recv, a * g)
+    per_edge = a * (g + c_abs[recv])
+    err, rtol, atol = _check(name, alpha, ref, "float32", ref)
+    ds_err = _check(name + " ds", ds[:e], ref_ds[:e], "float32",
+                    per_edge)[0]
+    dd_err = _check(name + " d f_dst", d_dst, ref_dd, "float32",
+                    torch.zeros_like(c_abs).index_add_(0, recv, per_edge))[0]
+    t = graph.transpose
+
+    def backward():
+        ds, d_dst = k2.gat_softmax_backward(graph, alpha, d_alpha, f_src,
+                                            f_dst, slope)
+        return k1.segment_sum(ds, t.senders, t.row_ptr, n,
+                              senders=t.edge_ids, n_edges=e,
+                              long_rows=t.long_rows,
+                              long_edges=graph.long_edges), d_dst
+
+    fs = f_src.clone().requires_grad_()
+    fd = f_dst.clone().requires_grad_()
+    taped = chain(fs, fd)
+    named = int(graph.senders[:e].unique().numel())
+    walk = e * 4 + (n + 1) * 4 + named * heads * 4 + n * heads * 4
+    fwd_bytes = walk + e * heads * 4
+    bwd_bytes = walk + 3 * e * heads * 4 + n * heads * 4
+    fwd_ms, fwd_by = bound(fwd_bytes, 8 * e * heads, exps=e * heads)
+    bwd_ms, bwd_by = bound(bwd_bytes, 8 * e * heads)
+    lay = dataclasses.asdict(k2.segmax_layout(
+        heads, graph.mean_row_edges, n, tile_walk.sm_count(
+            torch.device(DEVICE).index or 0)))
+    common = dict(kernel="K2", shape=[n, heads], heads=heads, edges_read=e,
+                  dtype="float32", n_out=n, graph=label, rtol=rtol,
+                  atol=atol, layout=lay,
+                  long_rows=int(graph.long_rows.numel()), library_ms=None,
+                  library="none: a chain of gathers, reductions and "
+                          "elementwise kernels")
+    return [
+        dict(common, form="softmax", max_abs_err=err,
+             kernel_ms=time_ms(lambda: k2.gat_softmax(graph, f_src, f_dst,
+                                                      slope)),
+             plain_ms=time_ms(lambda: k2.gat_softmax_plain(
+                 graph, f_src, f_dst, slope)),
+             replaced_ms=time_ms(lambda: chain(f_src, f_dst)),
+             replaced="the sender and receiver gathers, leaky_relu, "
+                      "edge_softmax (K2, K1, the gathers and elementwise "
+                      "kernels)",
+             bound_ms=fwd_ms, bound_by=fwd_by, bytes=fwd_bytes),
+        dict(common, form="softmax_bwd", max_abs_err=max(ds_err, dd_err),
+             kernel_ms=time_ms(lambda: k2.gat_softmax_backward(
+                 graph, alpha, d_alpha, f_src, f_dst, slope)),
+             with_k1_ms=time_ms(backward),
+             plain_ms=time_ms(lambda: k2.gat_softmax_backward_plain(
+                 graph, alpha, d_alpha, f_src, f_dst, slope)),
+             replaced_ms=time_ms(lambda: torch.autograd.grad(
+                 taped, (fs, fd), d_alpha, retain_graph=True)),
+             replaced="the chain's autograd backward from d alpha to "
+                      "d f_src and d f_dst",
+             bound_ms=bwd_ms, bound_by=bwd_by, bytes=bwd_bytes),
+    ]
+
+
 def _k2_case(graph, src, senders, label):
     """K2 on ``graph`` against its plain version, exactly: per-edge scores
     (``senders`` None; only the spanned edges count, as in K1) or a node
@@ -1273,6 +1373,12 @@ def phase_kernels(cora, cora_hg, pubmed_hg, large) -> tuple[list, float]:
         cases.append(_k1_dot_case("arxiv", arxiv, heads, f, dtype,
                                   dot_gen))
         emit({"phase": "kernels", **cases[-1]})
+    # K2's softmax modes as GAT-COO's layers run them on the same graph
+    # (8 heads, then the output layer's 1)
+    for heads in (8, 1):
+        for case in _k2_softmax_cases("arxiv", arxiv, heads, dot_gen):
+            cases.append(case)
+            emit({"phase": "kernels", **case})
     del arxiv
     # SAGE's mean as sage-products-coo runs it, on ogbn-products-shaped
     # graphs under the mix's law (rows up to ~2.8e4 edges on K1's CTA path)
@@ -2365,13 +2471,13 @@ HAN_PAPERS_LARGE = 3025
 HAN_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (3e-2, 3e-2)}
 #: HAN's launches (per epoch, final test forward): an epoch is one train
 #: step (forward and backward of the two metapath GAT layers), with no
-#: validation pass; COO forward per metapath: K2 (shift) + K1
-#: (denominator) + K1 (aggregation), backward 4 K1 (as GAT-COO's: the
-#: aggregation's d h, the denominator's read-back, the scores' sender and
-#: receiver gathers), the aggregation's launch also forming the attention
-#: weights' gradient (``K1_dw``)
+#: validation pass; COO forward per metapath: K2 in its softmax mode + K1
+#: (aggregation), backward as GAT-COO's: K1 (the aggregation's d h, also
+#: forming the attention weights' gradient, ``K1_dw``), K2 in its
+#: backward mode and K1 (d f_src); every K2 launch a softmax mode's
 HAN_HYBRID = {"K4": (2, 2), "K5": (2, 0), "K6": (2, 0)}
-HAN_COO = {"K1": (12, 4), "K2": (2, 2), "K1_dw": (2, 0)}
+HAN_COO = {"K1": (6, 2), "K2": (4, 2), "K2_softmax": (4, 2),
+           "K1_dw": (2, 0)}
 #: phase: (argv, launches, (n_papers, layout, dtype) of the timed block;
 #: None for ``han_batch``, which runs eager steps and no kernel)
 HAN_RUNS = {
@@ -4536,18 +4642,19 @@ def main() -> None:
     # GCN-COO per epoch: 2 layers x (train + val forward) K1's gathered
     # form, and 2 in the backward (each layer's d support over the
     # transpose; the first layer's support X.W needs one too); the final
-    # test evaluation adds one forward. GAT-COO per layer forward: K2 (the
-    # shift), K1 (the denominator) and K1 (the aggregation); backward 4 K1:
-    # the aggregation's d h over the transpose, the denominator's
-    # read-back by receiver, the scores' gathers by sender (over the
-    # transpose) and by receiver; the d h launch also forms the attention
-    # weights' gradient (K1_dw)
+    # test evaluation adds one forward. GAT-COO per layer forward: K2 in
+    # its softmax mode (the scores, maxima, denominators and weights) and
+    # K1 (the aggregation); backward K1 (the aggregation's d h over the
+    # transpose, which also forms the attention weights' gradient: K1_dw),
+    # K2 in its backward mode (ds, d f_dst) and K1 (d f_src over the
+    # transpose); every K2 launch is a softmax mode's (K2_softmax)
     runs += [
         _drive("gcn", ["--model", "gcn", "--epochs", str(GCN_EPOCHS),
                        "--device", DEVICE, "--quiet"], {"K1": (6, 2)}),
         _drive("gat", ["--model", "gat", "--layout", "coo", "--epochs",
                        str(GAT_EPOCHS), "--device", DEVICE, "--quiet"],
-               {"K1": (16, 4), "K2": (4, 2), "K1_dw": (2, 0)}),
+               {"K1": (8, 2), "K2": (6, 2), "K2_softmax": (6, 2),
+                "K1_dw": (2, 0)}),
     ]
     # per epoch: 2 layers x (train + val forward) K4, 2 layers x backward
     # K5 and K6; the final test evaluation adds one forward

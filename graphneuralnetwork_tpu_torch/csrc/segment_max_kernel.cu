@@ -44,6 +44,34 @@
 //     then the table row itself.
 // A max is exact in any order, so the output equals the plain version's bit
 // for bit (a NaN stays a NaN). No atomics.
+//
+// GAT's edge softmax (ops/segment.py:gat_edge_softmax) rides the same walk
+// as two further modes, always with the gather, from the per-node logits
+// f_src [N_table, C] (src, read at the senders) and f_dst [n_rows, C]:
+//
+//   kSoftmax:    s_e = LeakyReLU(f_src[senders_e] + f_dst[r]),
+//                m = max_e s_e, d = max(sum_e exp(s_e - m), 1e-16),
+//                alpha_e = exp(s_e - m) / d              (edge_out [E_pad, C])
+//   kSoftmaxBwd: c = sum_e alpha_e * dalpha_e,
+//                ds_e = alpha_e (dalpha_e - c) * (z_e > 0 ? 1 : slope) with
+//                z_e = f_src[senders_e] + f_dst[r]       (edge_out [E_pad, C]),
+//                d f_dst[r] = sum_e ds_e                 (out [n_rows, C])
+//
+// each over the row's edges, per column (a head). A lane reads its row's
+// f_dst once and walks the row's edges once a pass (three passes forward,
+// two backward), each pass re-reading the senders and the f_src rows they
+// name: at GAT's widths (C = 8 or 1) the table is a few MB, held in the
+// 50 MB L2, so the passes cost little beside the one [E, C] write forward
+// and the [E, C] reads and write backward, where the PyTorch chain they
+// replace (the gathers of f_src, f_dst, the maxima and the denominators,
+// the elementwise steps and their backward) took some fifteen [E, C]
+// passes through HBM. The row's partials fold by shuffles within its group
+// and, on a long row's CTA, through shared memory in warp order, so every
+// lane holds the row's max, denominator or dot before the next pass. All
+// float32 with IEEE expf and division, the chain's formula and order of
+// operations per edge; the sums run in the walk's fixed order (no atomics),
+// so a launch repeats bit for bit. Replaces no TPU kernel (the JAX package
+// leaves the chain to XLA beside _segmax_kernel).
 
 #include <cuda_runtime.h>
 
@@ -57,6 +85,15 @@ constexpr int kSplitUnroll = 8;    // the same, on a long row's CTA
 // lane): the rows' loads in flight set the kernel's speed.
 constexpr int kMinBlocks = 4;
 constexpr unsigned kFull = 0xffffffffu;
+// The softmax modes' edges in flight a lane, on a row and on a long row's
+// CTA alike: the passes keep the row's max, denominator or dot and f_dst
+// live beside the edges' values, and the backward carries alpha and dalpha
+// beside the scores, in the same register budget.
+constexpr int kSoftUnroll = 4;
+constexpr int kBwdUnroll = 2;
+
+// The kernel's modes: the segment max, GAT's edge softmax, its backward.
+enum Mode { kMax = 0, kSoftmax = 1, kSoftmaxBwd = 2 };
 
 struct SegArgs {
   const float* src;       // [E_pad, C] scores, or [N_table, C] (kGather)
@@ -66,6 +103,12 @@ struct SegArgs {
   float* out;             // [n_rows, C]
   int n_rows, c, lpe, group, per, n_long, long_edges;
   float empty;
+  // the softmax modes: src is f_src and senders its index; out is d f_dst
+  const float* dst;       // f_dst [n_rows, C]
+  const float* alpha;     // [E_pad, C] (kSoftmaxBwd)
+  const float* grad;      // dalpha [E_pad, C] (kSoftmaxBwd)
+  float* edge_out;        // alpha (kSoftmax) or ds (kSoftmaxBwd) [E_pad, C]
+  float slope;            // LeakyReLU's negative slope
 };
 
 // max.NaN: a NaN in either operand gives NaN, as jnp.maximum does
@@ -156,17 +199,247 @@ __device__ __forceinline__ void group_fold(float (&m)[V], int lpe,
       m[i] = max_nan(m[i], __shfl_xor_sync(kFull, m[i], off));
 }
 
+__device__ __forceinline__ float leaky(float z, float slope) {
+  return z > 0.f ? z : z * slope;
+}
+
+struct MaxOp {
+  __device__ __forceinline__ float operator()(float x, float y) const {
+    return max_nan(x, y);
+  }
+};
+
+struct AddOp {
+  __device__ __forceinline__ float operator()(float x, float y) const {
+    return x + y;
+  }
+};
+
+// Where a lane sits in its row's walk: its span [lo, hi), its edge lanes'
+// stride epg and offset eg, its vector (sub, col) and whether it holds one
+// (on); split: the row is a long row's CTA.
+struct Lane {
+  int lo, hi, eg, epg, sub, col, warp;
+  bool on, split;
+};
+
+// One lane's walk of its edges lo + eg, lo + eg + epg, ... below hi, U at a
+// time: the loads of all U first (kScore: the sender, then its f_src row,
+// to which the row's f_dst `fd` is added, giving z; kPair: alpha and dalpha
+// at the edge), then f(edge, z, alpha, dalpha) for each.
+template <int V, int U, bool kScore, bool kPair, class F>
+__device__ __forceinline__ void walk_edges(const SegArgs& a, const Lane& l,
+                                           const float (&fd)[V], F f) {
+  if (!l.on) return;
+  for (int e = l.lo + l.eg; e < l.hi; e += l.epg * U) {
+    bool ok[U];
+    int idx[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int ee = e + u * l.epg;
+      ok[u] = ee < l.hi;
+      idx[u] = kScore && ok[u] ? __ldg(a.senders + ee) : 0;
+    }
+    float z[U][V], al[U][V], g[U][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!ok[u]) continue;
+      const long long at = static_cast<long long>(e + u * l.epg) * a.c + l.col;
+      if (kScore)
+        Vec<V>::load(a.src + static_cast<long long>(idx[u]) * a.c + l.col,
+                     z[u]);
+      if (kPair) {
+        Vec<V>::load(a.alpha + at, al[u]);
+        Vec<V>::load(a.grad + at, g[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!ok[u]) continue;
+      if (kScore)
+#pragma unroll
+        for (int i = 0; i < V; ++i) z[u][i] += fd[i];
+      f(e + u * l.epg, z[u], al[u], g[u]);
+    }
+  }
+}
+
+// Fold v over the row's lanes, so that every lane of the row holds the
+// row's value: the group's edge lanes (lanes lpe apart) by xor shuffles,
+// and on a long row's CTA the 8 warps' partials through shared memory,
+// combined in warp order from `init`.
+template <int V, class Op>
+__device__ __forceinline__ void row_fold(float (&v)[V], const Lane& l,
+                                         int lpe, int group,
+                                         float (*part)[kSlabVecs * V],
+                                         float init, Op op) {
+  for (int off = lpe; off < group; off <<= 1)
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      v[i] = op(v[i], __shfl_xor_sync(kFull, v[i], off));
+  if (!l.split) return;
+  if (l.eg == 0 && l.on)
+#pragma unroll
+    for (int i = 0; i < V; ++i) part[l.warp][l.sub * V + i] = v[i];
+  __syncthreads();
+  if (l.on)
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      float t = init;
+      for (int q = 0; q < kWarps; ++q) t = op(t, part[q][l.sub * V + i]);
+      v[i] = t;
+    }
+  __syncthreads();   // part is free again for the next fold
+}
+
+// One row of the softmax modes on its lanes (module note); `store` is
+// false on lanes whose row is not theirs (past the end, or a long row in
+// the row sets).
+template <int V, int kMode>
+__device__ __forceinline__ void softmax_row(const SegArgs& a, int row,
+                                            const Lane& l, int group,
+                                            bool store,
+                                            float (*part)[kSlabVecs * V]) {
+  float fd[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) fd[i] = 0.f;
+  if (l.on && l.hi > l.lo)
+    Vec<V>::load(a.dst + static_cast<long long>(row) * a.c + l.col, fd);
+  const float slope = a.slope;
+  if constexpr (kMode == kSoftmax) {
+    float m[V], d[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) m[i] = a.empty;
+    walk_edges<V, kSoftUnroll, true, false>(
+        a, l, fd, [&](int, const float (&z)[V], const float (&)[V],
+                      const float (&)[V]) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) m[i] = max_nan(m[i], leaky(z[i], slope));
+        });
+    row_fold(m, l, a.lpe, group, part, a.empty, MaxOp());
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      // a row whose every score lies at the sentinel shifts by 0, as the
+      // chain's does
+      m[i] = m[i] > 0.5f * a.empty ? m[i] : 0.f;
+      d[i] = 0.f;
+    }
+    walk_edges<V, kSoftUnroll, true, false>(
+        a, l, fd, [&](int, const float (&z)[V], const float (&)[V],
+                      const float (&)[V]) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) d[i] += expf(leaky(z[i], slope) - m[i]);
+        });
+    row_fold(d, l, a.lpe, group, part, 0.f, AddOp());
+#pragma unroll
+    for (int i = 0; i < V; ++i) d[i] = d[i] < 1e-16f ? 1e-16f : d[i];
+    walk_edges<V, kSoftUnroll, true, false>(
+        a, l, fd, [&](int e, const float (&z)[V], const float (&)[V],
+                      const float (&)[V]) {
+          float o[V];
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            o[i] = expf(leaky(z[i], slope) - m[i]) / d[i];
+          Vec<V>::store(a.edge_out + static_cast<long long>(e) * a.c + l.col,
+                        o);
+        });
+  } else {
+    float c[V], t[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) c[i] = t[i] = 0.f;
+    walk_edges<V, kBwdUnroll, false, true>(
+        a, l, fd, [&](int, const float (&)[V], const float (&al)[V],
+                      const float (&g)[V]) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) c[i] += al[i] * g[i];
+        });
+    row_fold(c, l, a.lpe, group, part, 0.f, AddOp());
+    walk_edges<V, kBwdUnroll, true, true>(
+        a, l, fd, [&](int e, const float (&z)[V], const float (&al)[V],
+                      const float (&g)[V]) {
+          float ds[V];
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            const float v = al[i] * (g[i] - c[i]);
+            ds[i] = z[i] > 0.f ? v : v * slope;
+            t[i] += ds[i];
+          }
+          Vec<V>::store(a.edge_out + static_cast<long long>(e) * a.c + l.col,
+                        ds);
+        });
+    row_fold(t, l, a.lpe, group, part, 0.f, AddOp());
+    if (store && l.eg == 0 && l.on && (!l.split || l.warp == 0))
+      Vec<V>::store(a.out + static_cast<long long>(row) * a.c + l.col, t);
+  }
+}
+
+// The softmax modes' work, laid out as the max's (below): a long row on
+// all 8 warps of its CTA, each a contiguous share; the other rows in row
+// sets of 32 / group a warp, looped over the grid.
+template <int V, int kMode>
+__device__ __forceinline__ void softmax_rows(const SegArgs& a,
+                                             float (*part)[kSlabVecs * V]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool split = blockIdx.x < a.n_long;
+  const int group = split ? 32 : a.group;
+  const int gl = lane & (group - 1);
+  Lane l;
+  l.sub = gl & (a.lpe - 1);
+  l.eg = gl / a.lpe;
+  l.epg = group / a.lpe;
+  l.warp = warp;
+  l.split = split;
+  const int vi = blockIdx.y * a.per + l.sub;
+  l.on = l.sub < a.per && vi < a.c / V;
+  l.col = vi * V;
+
+  if (split) {
+    const int row = a.long_rows[blockIdx.x];
+    const int lo = __ldg(a.row_ptr + row), hi = __ldg(a.row_ptr + row + 1);
+    const int len = hi - lo, share = (len + kWarps - 1) / kWarps;
+    l.lo = lo + min(warp * share, len);
+    l.hi = min(l.lo + share, hi);
+    softmax_row<V, kMode>(a, row, l, 32, true, part);
+    return;
+  }
+
+  const int rpw = 32 / group;
+  const int n_sets = (a.n_rows + rpw - 1) / rpw;
+  const int stride = (gridDim.x - a.n_long) * kWarps;
+  int set = (blockIdx.x - a.n_long) * kWarps + warp;
+  int row = set * rpw + lane / group;
+  bool mine;
+  row_span(a, row, l.lo, l.hi, mine);
+  while (set < n_sets) {   // uniform per warp
+    const int nrow = row + stride * rpw;
+    int nlo, nhi;
+    bool nmine;
+    row_span(a, nrow, nlo, nhi, nmine);
+    softmax_row<V, kMode>(a, row, l, group, mine, part);
+    set += stride;
+    row = nrow;
+    l.lo = nlo;
+    l.hi = nhi;
+    mine = nmine;
+  }
+}
+
 // The work: blockIdx.x < n_long takes a long row on all 8 warps, each a
 // contiguous share; the other CTAs' warps walk row sets (32 / group rows
 // a warp, a group of lanes a row) in a loop over the grid, the next set's
 // spans loading beside this set's edges. blockIdx.y is the slab: vectors
 // [y * per, y * per + per) of the row's c / V. Lane `sub` of an edge's lpe
 // lanes holds the slab's vector sub; the group's epg = group / lpe edges
-// at a time go to its lanes in turn.
-template <int V, bool kGather>
+// at a time go to its lanes in turn. kMode: the max (below), or one of
+// the softmax modes (softmax_rows, with the gather).
+template <int V, bool kGather, int kMode>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
     segment_max_kernel(SegArgs a) {
   __shared__ float part[kWarps][kSlabVecs * V];   // a long row's partials
+  if constexpr (kMode != kMax) {
+    softmax_rows<V, kMode>(a, part);
+    return;
+  }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bool split = blockIdx.x < a.n_long;
   const int group = split ? 32 : a.group;
@@ -230,16 +503,41 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 }
 
 template <int V>
-cudaError_t launch(const SegArgs& a, bool gather, dim3 grid,
+cudaError_t launch(const SegArgs& a, bool gather, int mode, dim3 grid,
                    cudaStream_t stream) {
-  if (gather)
-    segment_max_kernel<V, true><<<grid, kWarps * 32, 0, stream>>>(a);
+  if (mode == kSoftmax)
+    segment_max_kernel<V, true, kSoftmax><<<grid, kWarps * 32, 0, stream>>>(
+        a);
+  else if (mode == kSoftmaxBwd)
+    segment_max_kernel<V, true, kSoftmaxBwd>
+        <<<grid, kWarps * 32, 0, stream>>>(a);
+  else if (gather)
+    segment_max_kernel<V, true, kMax><<<grid, kWarps * 32, 0, stream>>>(a);
   else
-    segment_max_kernel<V, false><<<grid, kWarps * 32, 0, stream>>>(a);
+    segment_max_kernel<V, false, kMax><<<grid, kWarps * 32, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
+
+bool bad_layout(int c, int vec, int lpe, int group, int per, int n_slabs,
+                int n_long, const void* long_rows) {
+  return (vec != 1 && vec != 4) || c % vec || !pow2(lpe) || !pow2(group) ||
+         lpe > group || group > 32 || per < 1 || per > lpe ||
+         static_cast<long long>(per) * n_slabs < c / vec ||
+         (n_long > 0 && long_rows == nullptr);
+}
+
+cudaError_t run(const SegArgs& a, int vec, int n_slabs, int row_ctas,
+                bool gather, int mode, void* stream) {
+  const int rows_per_cta = kWarps * (32 / a.group);
+  const int needed = (a.n_rows + rows_per_cta - 1) / rows_per_cta;
+  const dim3 grid(a.n_long + (row_ctas > 0 ? min(row_ctas, needed) : needed),
+                  n_slabs);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec == 4 ? launch<4>(a, gather, mode, grid, s)
+                  : launch<1>(a, gather, mode, grid, s);
+}
 
 __global__ void noop_kernel() {}
 
@@ -261,22 +559,46 @@ extern "C" int gnn_segment_max(const void* src, const void* senders,
                                int row_ctas, int n_long, int long_edges,
                                float empty, void* stream) {
   if (n_rows <= 0 || c <= 0) return 0;
-  if ((vec != 1 && vec != 4) || c % vec || !pow2(lpe) || !pow2(group) ||
-      lpe > group || group > 32 || per < 1 || per > lpe ||
-      static_cast<long long>(per) * n_slabs < c / vec ||
-      (n_long > 0 && long_rows == nullptr))
+  if (bad_layout(c, vec, lpe, group, per, n_slabs, n_long, long_rows))
     return static_cast<int>(cudaErrorInvalidValue);
   SegArgs a{static_cast<const float*>(src), static_cast<const int*>(senders),
             static_cast<const int*>(row_ptr),
             static_cast<const int*>(long_rows), static_cast<float*>(out),
             n_rows, c, lpe, group, per, n_long, long_edges, empty};
-  const int rows_per_cta = kWarps * (32 / group);
-  const int needed = (n_rows + rows_per_cta - 1) / rows_per_cta;
-  const dim3 grid(n_long + (row_ctas > 0 ? min(row_ctas, needed) : needed),
-                  n_slabs);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(vec == 4 ? launch<4>(a, senders, grid, s)
-                                   : launch<1>(a, senders, grid, s));
+  return static_cast<int>(
+      run(a, vec, n_slabs, row_ctas, senders != nullptr, kMax, stream));
+}
+
+// GAT's edge softmax (kSoftmax, backward 0) and its backward (kSoftmaxBwd,
+// backward 1) over the same layout: f_src [N_table, C] read at senders,
+// f_dst [n_rows, C]; forward writes alpha into edge_out [E_pad, C];
+// backward reads alpha and grad (dalpha) [E_pad, C] and writes ds into
+// edge_out and d f_dst into out [n_rows, C]. The edges past row_ptr[n_rows]
+// are neither read nor written. Returns the launch's cudaError_t.
+extern "C" int gnn_gat_softmax(const void* f_src, const void* f_dst,
+                               const void* senders, const void* row_ptr,
+                               const void* long_rows, const void* alpha,
+                               const void* grad, void* edge_out, void* out,
+                               int n_rows, int c, int vec, int lpe,
+                               int group, int per, int n_slabs, int row_ctas,
+                               int n_long, int long_edges, float empty,
+                               float slope, int backward, void* stream) {
+  if (n_rows <= 0 || c <= 0) return 0;
+  if (bad_layout(c, vec, lpe, group, per, n_slabs, n_long, long_rows) ||
+      !f_src || !f_dst || !senders || !row_ptr || !edge_out ||
+      (backward && (!alpha || !grad || !out)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  SegArgs a{static_cast<const float*>(f_src),
+            static_cast<const int*>(senders),
+            static_cast<const int*>(row_ptr),
+            static_cast<const int*>(long_rows), static_cast<float*>(out),
+            n_rows, c, lpe, group, per, n_long, long_edges, empty,
+            static_cast<const float*>(f_dst),
+            static_cast<const float*>(alpha),
+            static_cast<const float*>(grad), static_cast<float*>(edge_out),
+            slope};
+  return static_cast<int>(run(a, vec, n_slabs, row_ctas, true,
+                              backward ? kSoftmaxBwd : kSoftmax, stream));
 }
 
 // An empty kernel on one warp: the launch floor of the ctypes path, timed

@@ -25,9 +25,10 @@ from torch.nn import functional as F
 
 from ..core.bcsr import HybridGraph
 from ..core.graph import Graph
-from ..ops import edge_softmax, segment_max
-from ..ops.aggregate import aggregate_mean, gather_receivers, gather_senders
+from ..ops import segment_max
+from ..ops.aggregate import aggregate_mean
 from ..ops.bcsr_attention import gat_tiled_attend, hybrid_segment_max
+from ..ops.segment import gat_edge_softmax
 from ..ops.spmm import spmm, spmm_weighted
 from ..utils.profiling import span
 
@@ -160,14 +161,11 @@ class GATConv(nn.Module):
                 return out
             return out.reshape(n, self.num_heads, self.features).mean(1)
 
-        # the two gathers' backward sums each edge's gradient into its
-        # sender (over the graph's transpose) and its receiver on K1
-        scores = (gather_senders(graph, f_src)
-                  + gather_receivers(graph, f_dst))
-        scores = F.leaky_relu(scores, self.negative_slope)
-        # alpha stays float32: the weighted products and their gradients
-        # (the attention vectors' gradients cancel) are formed in float32
-        alpha = edge_softmax(graph, scores)
+        # the scores, their maxima, denominators and weights in one K2
+        # launch, their gradient in one more (and K1 for d f_src); alpha
+        # stays float32: the weighted products and their gradients (the
+        # attention vectors' gradients cancel) are formed in float32
+        alpha = gat_edge_softmax(graph, f_src, f_dst, self.negative_slope)
         if self.training:
             alpha = dropout(alpha, self.attn_dropout, generator)
         out = spmm_weighted(graph, alpha, h)      # [N, H, F], one K1 call

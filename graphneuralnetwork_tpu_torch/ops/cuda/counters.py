@@ -1,8 +1,10 @@
 """The launch counter of every kernel wrapper, by the TPU kernel it replaces
 (K1-K10; ``row_sum_stream`` and ``row_sum_ring`` for ``reduce_auto`` and
 ``reduce_manual`` of ``tools/bench_dma.py``), ``K1_dw``, K1's launches
-that carry the dot mode, and ``K1_mean``, K1's launches that carry SAGE's
-mean (both counted in ``K1`` too). A wrapper adds one to its
+that carry the dot mode, ``K1_mean``, K1's launches that carry SAGE's
+mean (both counted in ``K1`` too), and ``K2_softmax``, K2's launches that
+carry GAT's edge softmax or its backward (counted in ``K2`` too). A
+wrapper adds one to its
 ``launches`` where it launches its kernel and nowhere else; the plain
 versions count nothing.
 
@@ -24,7 +26,7 @@ from .bcsr_spmm_kernel import bcsr_spmm
 from .neighbor_max_kernel import neighbor_max
 from .rem_attend_kernel import rem_attend
 from .row_sum_kernel import row_sum_ring, row_sum_stream
-from .segment_max_kernel import segment_max
+from .segment_max_kernel import segment_max, segment_max_softmax
 from .spmm_kernel import segment_sum, segment_sum_dw, segment_sum_mean
 
 COUNTERS = {"K1": segment_sum, "K2": segment_max, "K3": bcsr_spmm,
@@ -32,7 +34,7 @@ COUNTERS = {"K1": segment_sum, "K2": segment_max, "K3": bcsr_spmm,
             "K7": neighbor_max, "K8": rem_attend, "K9": tile_parts,
             "K10": attend_fused, "row_sum_stream": row_sum_stream,
             "row_sum_ring": row_sum_ring, "K1_dw": segment_sum_dw,
-            "K1_mean": segment_sum_mean}
+            "K1_mean": segment_sum_mean, "K2_softmax": segment_max_softmax}
 
 
 def reset_launches() -> None:

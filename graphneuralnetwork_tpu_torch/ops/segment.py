@@ -7,6 +7,13 @@ leaves them to XLA. ``edge_softmax`` follows the reference's kernel
 branch: the segment-max kernel (K2) on the detached scores, then the
 denominator through ``aggregate_edges`` (K1), read back per edge by
 ``gather_receivers`` (whose backward is K1 again).
+
+``gat_edge_softmax(graph, f_src, f_dst, slope)`` is GAT's whole attention
+softmax on a COO ``Graph``, ``softmax_e(LeakyReLU(f_src[s] + f_dst[r]))``
+from the per-node logits: on a card one K2 launch in its softmax mode,
+and in the backward one more in its backward mode (``ds`` and ``d f_dst``)
+and K1 over the transpose for ``d f_src``; on the CPU the plain versions
+of both. It keeps only α and the two [N, H] tables for the backward.
 """
 
 from __future__ import annotations
@@ -17,7 +24,9 @@ import torch
 
 from ..utils.profiling import span
 from .aggregate import aggregate_edges, gather_receivers
+from .cuda.segment_max_kernel import gat_softmax, gat_softmax_backward
 from .cuda.segment_max_kernel import segment_max as _segment_max_kernel
+from .cuda.spmm_kernel import segment_sum as _segment_sum_kernel
 
 
 def _expand(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -109,3 +118,44 @@ def edge_softmax(graph, scores, mask=None, stable: bool = True):
     denom = torch.clamp_min(aggregate_edges(graph, e), 1e-16)
     alpha = (e / gather_receivers(graph, denom)).to(scores.dtype)
     return alpha[:, 0] if squeeze else alpha
+
+
+class _GatEdgeSoftmax(torch.autograd.Function):
+    """``gat_edge_softmax``'s forward and backward (module docstring)."""
+
+    @staticmethod
+    @span("op.edge_softmax")
+    def forward(ctx, f_src, f_dst, graph, slope):
+        alpha = gat_softmax(graph, f_src, f_dst, slope)
+        ctx.save_for_backward(alpha, f_src, f_dst)
+        ctx.graph, ctx.slope = graph, slope
+        return alpha
+
+    @staticmethod
+    @span("op.edge_softmax.backward")
+    def backward(ctx, d_alpha):
+        alpha, f_src, f_dst = ctx.saved_tensors
+        graph = ctx.graph
+        ds, d_dst = gat_softmax_backward(graph, alpha, d_alpha.contiguous(),
+                                         f_src, f_dst, ctx.slope)
+        d_src = None
+        if ctx.needs_input_grad[0]:
+            # each edge's ds summed into its sender: K1 over the transpose,
+            # reading ds at the edge ids (gather_senders' backward)
+            t = graph.transpose
+            d_src = _segment_sum_kernel(
+                ds, t.senders, t.row_ptr, graph.sender_rows,
+                senders=t.edge_ids, n_edges=graph.n_edges,
+                long_rows=t.long_rows, long_edges=graph.long_edges)
+        return d_src, d_dst, None, None
+
+
+def gat_edge_softmax(graph, f_src: torch.Tensor, f_dst: torch.Tensor,
+                     negative_slope: float) -> torch.Tensor:
+    """α [E_pad, H], float32 (in the tables' dtype on the CPU): per head,
+    the softmax of ``LeakyReLU(f_src[senders_e] + f_dst[r])`` over each
+    receiver's real edges, 0 on the padding edges; ``f_src`` [sender
+    rows, H] and ``f_dst`` [N, H] the per-node logits, differentiable in
+    both."""
+    return _GatEdgeSoftmax.apply(f_src.contiguous(), f_dst.contiguous(),
+                                 graph, negative_slope)

@@ -38,8 +38,7 @@ from torch.nn import functional as F
 
 from ..nn.conv import GATConv
 from ..nn.gtn import _row_normalize
-from ..ops.aggregate import gather_receivers, gather_senders
-from ..ops.segment import edge_softmax
+from ..ops.segment import gat_edge_softmax
 from ..ops.spmm import spmm, spmm_weighted
 from .collectives import (all_gather_rows, all_reduce_sum, all_to_all_rows,
                           copy_to, reduce_from)
@@ -113,8 +112,9 @@ def _check_layout(graph) -> None:
 def _attend_out(conv, graph, proj: torch.Tensor) -> torch.Tensor:
     """GAT's output head after its row-sharded projection: ``conv``'s
     attention of ``proj`` [n, H, F], whole on every model rank, over a halo
-    partition's rows (one exchange, K1 and K2) or a ``Graph`` (``GATConv``'s
-    COO path); the heads averaged, [n, F]."""
+    partition's rows (one exchange, K1 and K2) or a ``Graph``
+    (``gat_edge_softmax``, as ``GATConv``'s COO path); the heads averaged,
+    [n, F]."""
     pf = proj.float()
     f_src = torch.einsum("nhf,hf->nh", pf, conv.attn_src)
     f_dst = torch.einsum("nhf,hf->nh", pf, conv.attn_dst)
@@ -123,10 +123,8 @@ def _attend_out(conv, graph, proj: torch.Tensor) -> torch.Tensor:
         out = gat_halo_attend(graph, proj, f_src, f_dst,
                               negative_slope=conv.negative_slope)
         return out.reshape(proj.shape).mean(1)
-    scores = F.leaky_relu(gather_senders(graph, f_src)
-                          + gather_receivers(graph, f_dst),
-                          conv.negative_slope)
-    return spmm_weighted(graph, edge_softmax(graph, scores), proj).mean(1)
+    alpha = gat_edge_softmax(graph, f_src, f_dst, conv.negative_slope)
+    return spmm_weighted(graph, alpha, proj).mean(1)
 
 
 class TPGCN(_TPModel):

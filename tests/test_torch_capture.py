@@ -45,9 +45,14 @@ from graphneuralnetwork_tpu_torch.train.schedule import (  # noqa: E402
 N, FEATS, CLASSES = 640, 16, 3
 K = 3   # epochs a block
 
-#: Where the port calls each kernel wrapper (the names its modules import).
+#: Where the port calls each kernel wrapper (the names its modules
+#: import), and the counters a call adds one to where they are not the
+#: wrapper's own (GAT's edge softmax: a K2 launch in a softmax mode).
 CALL_SITES = [
     (aggregate, "segment_sum"), (segment, "_segment_max_kernel"),
+    (segment, "_segment_sum_kernel"),
+    (segment, "gat_softmax", "K2", "K2_softmax"),
+    (segment, "gat_softmax_backward", "K2", "K2_softmax"),
     (bcsr_spmm, "_bcsr_spmm_kernel"),
     *((bcsr_attention, name) for name in (
         "attend_online", "attend_bwd_a", "attend_bwd_b", "neighbor_max",
@@ -60,15 +65,19 @@ def counted(monkeypatch):
     """Each kernel wrapper's call sites count a launch per call, as the
     wrapper does where it launches its kernel (its plain version on the
     CPU counts nothing)."""
-    def counting(wrapper):
+    def counting(wrapper, keys):
+        tallies = [counters.COUNTERS[k] for k in keys] or [wrapper]
+
         @functools.wraps(wrapper)
         def call(*args, **kwargs):
-            wrapper.launches += 1
+            for tally in tallies:
+                tally.launches += 1
             return wrapper(*args, **kwargs)
         return call
 
-    for module, name in CALL_SITES:
-        monkeypatch.setattr(module, name, counting(getattr(module, name)))
+    for module, name, *keys in CALL_SITES:
+        monkeypatch.setattr(module, name,
+                            counting(getattr(module, name), keys))
     counters.reset_launches()
     yield
     counters.reset_launches()

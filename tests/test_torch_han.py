@@ -218,10 +218,10 @@ def test_han_dropout_draws_from_the_generator(han_data):
 
 
 #: kernels of one HAN epoch (forward and backward), by layout; on COO
-#: each metapath's GAT layer runs K1 twice forward (denominator,
-#: aggregation) and four times backward (the aggregation's d x, the
-#: denominator's read-back, the sender and receiver score gathers)
-EPOCH_LAUNCHES = {"coo": {"K1": 12, "K2": 2},
+#: each metapath's GAT layer runs K2 in its softmax mode and K1 (the
+#: aggregation) forward, and backward K1 (the aggregation's d x), K2 in
+#: its backward mode (ds, d f_dst) and K1 (d f_src over the transpose)
+EPOCH_LAUNCHES = {"coo": {"K1": 6, "K2": 4, "K2_softmax": 4},
                   "hybrid": {"K4": 2, "K5": 2, "K6": 2}}
 
 

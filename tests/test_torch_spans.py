@@ -32,18 +32,19 @@ CASES = {
                  "op.gather_sum.backward.dx"}),
     "gat_coo": ("coo", lambda: GAT(FEATS, hidden=4, num_heads=2,
                                    num_classes=CLASSES),
-                {"conv.GATConv", "op.gather", "op.gather.backward",
-                 "op.edge_softmax", "op.aggregate", "op.aggregate.backward",
-                 "op.gather_sum", "op.gather_sum.backward",
-                 "op.gather_sum.backward.dx"}),
+                {"conv.GATConv", "op.edge_softmax",
+                 "op.edge_softmax.backward", "op.gather_sum",
+                 "op.gather_sum.backward", "op.gather_sum.backward.dx"}),
     "gat_hybrid": ("hybrid", lambda: GAT(FEATS, hidden=4, num_heads=2,
                                          num_classes=CLASSES),
                    {"conv.GATConv", "op.tiled_attend", "op.draw_dropout"}),
 }
 #: launches of one captured epoch at the benchmark's layouts (GAT's two
-#: ``d h`` launches also form the attention weights' gradient: ``K1_dw``)
+#: ``d h`` launches also form the attention weights' gradient: ``K1_dw``;
+#: its edge softmax is K2's softmax modes, two forward and one backward a
+#: layer: ``K2_softmax``)
 LAUNCHES = {"gcn_coo": {"K1": 6},
-            "gat_coo": {"K1": 16, "K2": 4, "K1_dw": 2}}
+            "gat_coo": {"K1": 8, "K2": 6, "K2_softmax": 6, "K1_dw": 2}}
 
 
 @pytest.fixture
